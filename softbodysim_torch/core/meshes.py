@@ -1,0 +1,98 @@
+"""Procedural simulation meshes (NumPy; same generators as
+``softbodysim_tpu/core/meshes.py``, so topologies compare array-equal)."""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+from .topology import Topology, build_topology
+
+
+def tet_cube(nx: int = 4, ny: int = 4, nz: int = 4, size: float = 1.0,
+             center=(0.0, 0.0, 0.0)) -> Topology:
+    """Axis-aligned box of (nx, ny, nz) cells, each split into 5 tets with
+    alternating parity so faces are conforming."""
+    xs = np.linspace(-0.5, 0.5, nx + 1) * size + center[0]
+    ys = np.linspace(-0.5, 0.5, ny + 1) * size + center[1]
+    zs = np.linspace(-0.5, 0.5, nz + 1) * size + center[2]
+    gx, gy, gz = np.meshgrid(xs, ys, zs, indexing="ij")
+    verts = np.stack([gx, gy, gz], axis=-1).reshape(-1, 3).astype(np.float32)
+
+    def vid(i, j, k):
+        return (i * (ny + 1) + j) * (nz + 1) + k
+
+    # 5-tet decomposition; mirror on odd-parity cells to share diagonals
+    even = np.array(
+        [(0, 1, 2, 4), (1, 3, 2, 7), (1, 4, 5, 7), (2, 4, 7, 6),
+         (1, 2, 4, 7)], np.int64)
+    odd = np.array(
+        [(0, 1, 3, 5), (0, 3, 2, 6), (0, 5, 4, 6), (3, 5, 6, 7),
+         (0, 3, 5, 6)], np.int64)
+
+    ci, cj, ck = np.meshgrid(
+        np.arange(nx, dtype=np.int64), np.arange(ny, dtype=np.int64),
+        np.arange(nz, dtype=np.int64), indexing="ij")
+    ci, cj, ck = ci.ravel(), cj.ravel(), ck.ravel()
+    corners = np.stack(
+        [vid(ci, cj, ck), vid(ci, cj, ck + 1),
+         vid(ci, cj + 1, ck), vid(ci, cj + 1, ck + 1),
+         vid(ci + 1, cj, ck), vid(ci + 1, cj, ck + 1),
+         vid(ci + 1, cj + 1, ck), vid(ci + 1, cj + 1, ck + 1)], axis=1)
+    pattern = np.where(
+        (((ci + cj + ck) % 2) == 0)[:, None, None], even[None], odd[None])
+    tets = np.take_along_axis(
+        corners[:, None, :], pattern.reshape(-1, 5, 4), axis=2).reshape(-1, 4)
+    return build_topology(verts, tets)
+
+
+def tet_ball(subdivisions: int = 1, radius: float = 0.5,
+             center=(0.0, 0.0, 0.0)) -> Topology:
+    """Icosphere surface tetrahedralized by fanning every surface triangle
+    to the centre vertex."""
+    verts, faces = icosphere(subdivisions)
+    verts = verts * radius + np.asarray(center, np.float32)
+    centroid = np.asarray(center, np.float32).reshape(1, 3)
+    all_verts = np.concatenate([verts, centroid], axis=0).astype(np.float32)
+    tets = np.concatenate(
+        [faces, np.full((len(faces), 1), len(verts), np.int64)], axis=1)
+    return build_topology(all_verts, tets)
+
+
+def icosphere(subdivisions: int = 1) -> Tuple[np.ndarray, np.ndarray]:
+    """Unit icosphere (vertices, faces) via midpoint subdivision."""
+    t = (1.0 + np.sqrt(5.0)) / 2.0
+    verts = np.array(
+        [[-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+         [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+         [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1]], np.float64)
+    verts /= np.linalg.norm(verts, axis=1, keepdims=True)
+    faces = np.array(
+        [[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+         [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+         [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+         [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1]], np.int64)
+
+    for _ in range(subdivisions):
+        cache = {}
+        vlist = list(verts)
+
+        def midpoint(a, b):
+            key = (min(a, b), max(a, b))
+            if key in cache:
+                return cache[key]
+            m = (vlist[a] + vlist[b]) / 2.0
+            m /= np.linalg.norm(m)
+            vlist.append(m)
+            cache[key] = len(vlist) - 1
+            return cache[key]
+
+        new_faces = []
+        for f in faces:
+            a, b, c = int(f[0]), int(f[1]), int(f[2])
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new_faces += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        verts = np.asarray(vlist)
+        faces = np.asarray(new_faces, np.int64)
+    return verts.astype(np.float32), faces

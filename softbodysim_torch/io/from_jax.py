@@ -1,0 +1,40 @@
+"""Carry a state and solver parameters between the JAX package and the port
+as plain NumPy data (used by the parity tests).  Imports neither jax nor the
+JAX package: the caller converts its arrays with ``np.asarray``."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..core.state import SimState, SolverParams, resolve_device
+
+STATE_FIELDS = tuple(f.name for f in dataclasses.fields(SimState))
+
+
+def state_from_numpy(arrays: Dict[str, np.ndarray], device=None) -> SimState:
+    """A SimState on ``device`` from a dict of the six fields' arrays."""
+    missing = [k for k in STATE_FIELDS if k not in arrays]
+    if missing:
+        raise KeyError(f"state arrays missing {missing}")
+    dev = resolve_device(device)
+    return SimState(**{
+        k: torch.from_numpy(np.array(arrays[k], np.float32)).to(dev)
+        for k in STATE_FIELDS})
+
+
+def state_to_numpy(state: SimState) -> Dict[str, np.ndarray]:
+    """The six fields as host float32 arrays."""
+    return {k: getattr(state, k).detach().cpu().numpy()
+            for k in STATE_FIELDS}
+
+
+def params_from_fields(obj) -> SolverParams:
+    """A SolverParams copying every field of the same name from ``obj``
+    (for example the JAX package's SolverParams)."""
+    return SolverParams(**{f.name: getattr(obj, f.name)
+                           for f in dataclasses.fields(SolverParams)
+                           if hasattr(obj, f.name)})

@@ -1,0 +1,335 @@
+"""XPBD solver on the block-synchronous sweep kernels -- the single large
+scene path.
+
+The counterpart of ``softbodysim_tpu/solver/xpbd_pallas.py`` (flat path):
+the same physics contract (XPBD compliance, lambda accumulated across the
+whole run, ground clamp inside iterations, friction at commit), the same
+host plans, the same block order and block scheme, on the CUDA kernels of
+``kernels/sweep.py``.  No segmentation: the particle table lives in device
+memory, not in a bounded scratchpad.
+
+Internal layout (one device):
+  xw : (Vpad, 4) f32 -- x* xyz + inverse mass, rows in layout order
+  xp : (Vpad, 3) f32 -- committed positions
+  vv : (Vpad, 3) f32 -- velocities
+Layout slot i holds vertex perm[i]; dead slots (perm == V: tail padding and
+component-alignment gaps) sit at the origin with w = 0 and never move.  The
+permutation and the packed lambda order are applied only at the public
+SimState boundary (``pack_state`` / ``unpack_state``).
+"""
+
+from __future__ import annotations
+
+import weakref
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..core.state import SimState, SolverParams, resolve_device
+from ..kernels import sweep as sw
+from ..kernels import sweep_plan as sp
+
+LANES = sp.LANES
+
+# Packing a 600k-constraint topology takes seconds of host work; memoize
+# per topology object, so steps rebuilt with other substeps / iterations /
+# schemes reuse the plans.  Entries die with the topology.
+_PLAN_CACHE: dict = {}
+
+
+def _pack_best(cons, rest, layer_cap, arity):
+    """Adaptive super-block packing: both greedy-scan orders x slot caps,
+    keep the cheapest by the JAX package's per-block op-count model (so the
+    plans, and with them the block order, are the JAX package's)."""
+    best = None
+    for order_mode in (1, 0):
+        for scap in (8, 12, 16):
+            plan = sp.pack_superblocks(cons, rest, slots_cap=scap,
+                                       layer_cap=layer_cap,
+                                       order_mode=order_mode)
+            cost = plan.num_super * (12 * arity * scap
+                                     + 15 * scap * plan.dmax + 80)
+            if best is None or cost < best[0]:
+                best = (cost, plan)
+            if len(cons) / plan.capacity >= 0.6:
+                break
+    return best[1]
+
+
+def cached_plans(topology):
+    """(perm_layout, old2new, nwin, e_plan, t_plan), as the JAX package's
+    ``_cached_plans`` with its defaults (flat superblock path, 'auto'
+    vertex order, adaptive slot caps).  perm_layout is (nwin*128,) old
+    vertex ids, == V on dead slots."""
+    key = id(topology)
+    hit = _PLAN_CACHE.get(key)
+    if hit is not None:
+        return hit
+    V = topology.num_particles
+    has_edges = topology.num_edges > 0
+    has_tets = topology.num_tets > 0
+
+    aligned = sp.aligned_order(V, topology.edges) if has_edges else None
+    if aligned is not None:
+        perm_layout, old2new = aligned
+    else:
+        perm = sp.order_vertices(
+            topology.vertices,
+            topology.edges if has_edges else None,
+            topology.tets if has_tets else None)
+        vpad = -(-V // LANES) * LANES
+        perm_layout = np.concatenate([perm, np.full(vpad - V, V, np.int64)])
+        old2new = np.empty(V, np.int64)
+        old2new[perm] = np.arange(V)
+    nwin = len(perm_layout) // LANES
+
+    e_plan = t_plan = None
+    # same-block multiplicity cap: 2 for edges, 3 for tets
+    if has_edges:
+        e_plan = sp.regroup_plan(_pack_best(
+            old2new[topology.edges.astype(np.int64)],
+            topology.edge_rest, 2, 2))
+    if has_tets:
+        t_plan = sp.regroup_plan(_pack_best(
+            old2new[topology.tets.astype(np.int64)],
+            topology.tet_rest_vol, 3, 4))
+    result = (perm_layout, old2new, nwin, e_plan, t_plan)
+    _PLAN_CACHE[key] = result
+    weakref.finalize(topology, _PLAN_CACHE.pop, key, None)
+    return result
+
+
+def resolve_block_scheme(params: SolverParams) -> dict:
+    """{"edge": (scheme, omega, k), "tet": (scheme, omega, k)}.
+
+    Each knob takes a scalar or an (edge, tet) pair.  'auto' resolves to
+    the tuned split defaults: both families mass-split, omega (1.5, 2.2)
+    when the omega knob is left at its neutral 1.0, one visit per block."""
+
+    def pair(v, cast):
+        if isinstance(v, (tuple, list)):
+            e, t = v
+            return cast(e), cast(t)
+        return cast(v), cast(v)
+
+    se, st = pair(params.xpbd_block_scheme, str)
+    oe, ot = pair(params.xpbd_block_omega, float)
+    ke, kt = pair(params.xpbd_block_local_iters, lambda x: max(1, int(x)))
+    om_default = not isinstance(params.xpbd_block_omega, (tuple, list)) \
+        and float(params.xpbd_block_omega) == 1.0
+    if se == "auto":
+        se = "split"
+        if om_default:
+            oe = 1.5
+    if st == "auto":
+        st = "split"
+        if om_default:
+            ot = 2.2
+    return {"edge": (se, oe, ke), "tet": (st, ot, kt)}
+
+
+class Carry(NamedTuple):
+    """Internal run state: layout tables, packed lambdas and the streamed
+    inverse-mass tables (filled once per pack; masses never change)."""
+
+    xw: torch.Tensor
+    xp: torch.Tensor
+    vv: torch.Tensor
+    lam_e: torch.Tensor
+    lam_t: torch.Tensor
+    w_e: Optional[torch.Tensor]
+    w_t: Optional[torch.Tensor]
+
+
+def _f32(x) -> float:
+    """x rounded to float32, as a Python float (exact in either width)."""
+    return float(np.float32(x))
+
+
+class SweepStep:
+    """``step(state, dt) -> state`` on the sweep kernels, with the carry
+    API: ``pack_state`` -> ``run_carry``* -> ``unpack_state`` keeps the
+    internal layout on the device across any number of calls, and
+    ``carry_positions`` reads committed positions without unpacking the
+    lambdas."""
+
+    backend = "sweep"
+
+    def __init__(self, topology, params: SolverParams, colliders=None, *,
+                 device=None, edge_c=None, tet_c=None):
+        if colliders is not None:
+            raise NotImplementedError(
+                "colliders are not ported yet (ROADMAP.md queue 1 item 3)")
+        if params.xpbd_x_dtype == "bfloat16":
+            raise NotImplementedError(
+                "xpbd_x_dtype='bfloat16' is not ported yet (ROADMAP.md "
+                "queue 1 item 5)")
+        if params.xpbd_x_dtype != "float32":
+            raise ValueError(f"unknown xpbd_x_dtype {params.xpbd_x_dtype!r}"
+                             " (float32|bfloat16)")
+        if params.self_collision or (params.surface_collision
+                                     and len(topology.surface_tris)):
+            raise NotImplementedError(
+                "self / surface collision is not ported yet (ROADMAP.md "
+                "queue 1 item 9)")
+        self.device = resolve_device(device)
+        self.params = params
+        self.has_edges = topology.num_edges > 0
+        self.has_tets = topology.num_tets > 0
+        self._edge_c, self._tet_c = edge_c, tet_c
+
+        perm, old2new, nwin, e_plan, t_plan = cached_plans(topology)
+        fam = resolve_block_scheme(params)
+        (e_sch, e_om, self._e_k), (t_sch, t_om, self._t_k) = \
+            fam["edge"], fam["tet"]
+        self.block_order = {"edges": e_plan, "tets": t_plan}
+        self.block_scheme = {"scheme": (e_sch, t_sch), "omega": (e_om, t_om),
+                             "local_iters": (self._e_k, self._t_k)}
+        self.gpu_plans = {
+            "edges": sp.build_gpu_plan(
+                e_plan, old2new[topology.edges.astype(np.int64)],
+                scheme=e_sch, omega=e_om, compliance=edge_c)
+            if self.has_edges else None,
+            "tets": sp.build_gpu_plan(
+                t_plan, old2new[topology.tets.astype(np.int64)],
+                scheme=t_sch, omega=t_om, compliance=tet_c)
+            if self.has_tets else None,
+        }
+        self.device_plans = {k: sw.to_device(p, self.device)
+                             for k, p in self.gpu_plans.items()
+                             if p is not None}
+        dev = self.device
+        self._perm = torch.as_tensor(perm, dtype=torch.int64).to(dev)
+        self._old2new = torch.as_tensor(old2new, dtype=torch.int64).to(dev)
+        self._pos_of = {k: torch.as_tensor(p.pos_of).to(dev)
+                        for k, p in self.gpu_plans.items() if p is not None}
+        self._gravity = torch.tensor(params.gravity, dtype=torch.float32,
+                                     device=dev)
+
+    # ---- public <-> internal layout --------------------------------------
+
+    def pack_state(self, state: SimState) -> Carry:
+        """Public state -> carry (new tensors; ``state`` is not touched and
+        serves as the template for ``unpack_state``)."""
+        dev = self.device
+
+        def rows(a):                       # (V, k) -> (Vpad, k), permuted
+            a = a.to(dev, torch.float32)
+            return torch.cat([a, a.new_zeros((1,) + a.shape[1:])])[
+                self._perm].contiguous()
+
+        xw = torch.cat([rows(state.x_star), rows(state.inv_mass)[:, None]],
+                       1).contiguous()
+
+        def pack_lam(fam, lam):
+            plan = self.device_plans.get(fam)
+            if plan is None:
+                return torch.zeros((0,), dtype=torch.float32, device=dev)
+            out = torch.zeros((plan.num_blocks * sp.BLOCK,),
+                              dtype=torch.float32, device=dev)
+            out[self._pos_of[fam]] = lam.to(dev, torch.float32)
+            return out
+
+        ep, tp = self.device_plans.get("edges"), self.device_plans.get("tets")
+        return Carry(
+            xw=xw, xp=rows(state.x), vv=rows(state.v),
+            lam_e=pack_lam("edges", state.edge_lambda),
+            lam_t=pack_lam("tets", state.tet_lambda),
+            w_e=sw.w_fill(ep, xw) if ep is not None else None,
+            w_t=sw.w_fill(tp, xw) if tp is not None else None)
+
+    def unpack_state(self, carry: Carry, state: SimState) -> SimState:
+        """Carry -> public state (``state`` supplies inv_mass and the
+        lambdas of absent families); stepping may continue from the same
+        carry."""
+        o2n = self._old2new
+        return SimState(
+            x=carry.xp[o2n], v=carry.vv[o2n], x_star=carry.xw[o2n, :3],
+            inv_mass=state.inv_mass,
+            edge_lambda=(carry.lam_e[self._pos_of["edges"]]
+                         if self.has_edges else state.edge_lambda),
+            tet_lambda=(carry.lam_t[self._pos_of["tets"]]
+                        if self.has_tets else state.tet_lambda))
+
+    def carry_positions(self, carry: Carry) -> torch.Tensor:
+        """Committed positions (V, 3) straight off the carry."""
+        return carry.xp[self._old2new]
+
+    # ---- stepping ---------------------------------------------------------
+
+    def _resolve(self, edge_compliance, volume_compliance, colliders_rt):
+        if colliders_rt is not None:
+            raise NotImplementedError(
+                "colliders are not ported yet (ROADMAP.md queue 1 item 3)")
+        # with per-constraint tables the scalars SCALE the tables
+        p = self.params
+        ec = ((1.0 if self._edge_c is not None else p.edge_compliance)
+              if edge_compliance is None else edge_compliance)
+        vc = ((1.0 if self._tet_c is not None else p.volume_compliance)
+              if volume_compliance is None else volume_compliance)
+        return np.float32(ec), np.float32(vc)
+
+    def run_carry(self, carry: Carry, dt, n: int, edge_compliance=None,
+                  volume_compliance=None, colliders_rt=None) -> Carry:
+        """n steps on the carry, in place; returns it."""
+        ec, vc = self._resolve(edge_compliance, volume_compliance,
+                               colliders_rt)
+        p = self.params
+        ss = max(1, p.substeps)
+        # scalars in float32, as the JAX step computes them
+        sdt = np.float32(dt) / np.float32(ss)
+        big = sdt > np.float32(1e-12)
+        inv_dt2 = np.float32(1.0) / (sdt * sdt) if big else np.float32(0.0)
+        inv_dt = np.float32(1.0) / sdt if big else np.float32(0.0)
+        e_alpha = float(np.maximum(ec, np.float32(0.0)) * inv_dt2)
+        t_alpha = float(np.maximum(vc, np.float32(0.0)) * inv_dt2)
+        free = carry.xw[:, 3:4] != 0.0
+        for _ in range(int(n)):
+            for _ in range(ss):
+                self._substep(carry, free, float(sdt), float(inv_dt),
+                              e_alpha, t_alpha)
+        return carry
+
+    def _substep(self, c: Carry, free, sdt, inv_dt, e_alpha, t_alpha):
+        p = self.params
+        xw, xp, vv = c.xw, c.xp, c.vv
+        # predict: semi-implicit Euler; pinned rows hold still
+        vv.copy_(torch.where(free, vv + self._gravity * sdt, vv))
+        xw[:, :3] = torch.where(free, xp + vv * sdt, xp)
+        ep, tp = self.device_plans.get("edges"), self.device_plans.get("tets")
+        ground_y = _f32(p.ground_y)
+        for _ in range(p.iterations):
+            if ep is not None:
+                sw.edge_sweep(ep, xw, c.lam_e, c.w_e, e_alpha, self._e_k)
+            if tp is not None:
+                sw.tet_sweep(tp, xw, c.lam_t, c.w_t, t_alpha, self._t_k)
+            if p.ground_enabled:          # axis-aligned y clamp
+                y = xw[:, 1]
+                xw[:, 1] = torch.where(free[:, 0], y.clamp_min(ground_y), y)
+        # commit: velocity update + ground friction
+        xs = xw[:, :3]
+        vel = (xs - xp) * inv_dt
+        if p.ground_enabled:
+            on_g = xs[:, 1] <= _f32(p.ground_y + 1e-6)
+            keep = _f32(1.0 - min(1.0, max(0.0, p.friction)))
+            vx = torch.where(on_g, vel[:, 0] * keep, vel[:, 0])
+            vz = torch.where(on_g, vel[:, 2] * keep, vel[:, 2])
+            vy = torch.where(on_g & (vel[:, 1] < 0.0), 0.0, vel[:, 1])
+            vel = torch.stack([vx, vy, vz], 1)
+        vv.copy_(torch.where(free, vel, 0.0))
+        xp.copy_(torch.where(free, xs, xp))
+        xw[:, :3] = xp
+
+    def __call__(self, state: SimState, dt, edge_compliance=None,
+                 volume_compliance=None, colliders_rt=None) -> SimState:
+        return self.step_n(state, dt, 1, edge_compliance, volume_compliance,
+                           colliders_rt)
+
+    def step_n(self, state: SimState, dt, n: int, edge_compliance=None,
+               volume_compliance=None, colliders_rt=None) -> SimState:
+        carry = self.pack_state(state)
+        self.run_carry(carry, dt, n, edge_compliance, volume_compliance,
+                       colliders_rt)
+        return self.unpack_state(carry, state)
+

@@ -1,0 +1,45 @@
+"""The port imports neither jax nor the JAX package.  Checked by scanning
+the sources (this test process has jax imported already, so sys.modules
+proves nothing)."""
+
+import ast
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "softbodysim_tpu"}
+PORT_FILES = sorted((ROOT / "softbodysim_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", None)) in (
+                    "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_file_imports_no_jax(path):
+    bad = set(_imported_roots(path)) & FORBIDDEN
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_scan_sees_the_whole_port():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for must in ("softbodysim_torch/kernels/sweep.py",
+                 "softbodysim_torch/solver/xpbd_sweep.py",
+                 "softbodysim_torch/api/engine.py", "chip_smoke.py"):
+        assert must in names
+    # and the scan does catch an import
+    assert "jax" in set(_imported_roots(ROOT / "softbodysim_tpu"
+                                        / "core" / "state.py"))
