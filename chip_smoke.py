@@ -5,24 +5,49 @@
 Phases, in order; any failure is an uncaught exception and a non-zero exit:
 
 1. Require a CUDA device; print the card's name and power limit.
-2. Build the CUDA sweep kernels from softbodysim_torch/kernels/csrc/sweep.cu
-   (nvcc) and print the build time and each kernel's resources.
-3. At north-star plan shapes (tet_cube(47): V = 110,592, E = 642,960,
-   T = 519,115), compare each kernel with its plain PyTorch version on the
-   card from one predicted, perturbed state, and time both.
-4. Drive the main path: Engine(tet_cube(47), xpbd, 8 substeps,
-   1 iteration, device="cuda") with xpbd_backend="auto" -> the sweep
-   backend; run(32) then step(); check the positions and that every
-   kernel was launched; then time a warm window.
-5. Reference check on a small input: the same Engine on the card against
-   the NumPy block-synchronous oracle (tests/oracle.py), 10 steps.
+2. Build every CUDA kernel from softbodysim_torch/kernels/csrc/*.cu (one
+   nvcc per source, all started together, then one link) and print the
+   build time and each kernel's resources.
+3. XPBD main path at the north star (tet_cube(47): V = 110,592,
+   E = 642,960, T = 519,115): Engine(xpbd, 8 substeps, 1 iteration,
+   device="cuda") with xpbd_backend="auto" -> the sweep backend; run(32)
+   then step(); check the positions and that every sweep kernel was
+   launched; time three warm 20-step windows (their median is the
+   path's ms/step).
+4. Jacobi main path on the same cube: Engine(jacobi, the in-engine
+   tunings, a floor box collider, device="cuda") with
+   jacobi_backend="auto" -> the pass backend; run(32) then step(); check
+   and time three warm 20-step windows.
+5. XPBD reference check: a small Engine against the NumPy
+   block-synchronous oracle (tests/oracle.py), 10 steps.
+6. SampleScene's body (tet_ball(2, 0.3) at (0, 1, 0), density 0.2) on its
+   box through the gather backend, which launches the collide kernel.
+7. Jacobi reference check: tet_cube(3) onto a box and the ground, 10 steps
+   on the card on the pass and gather backends, against the NumPy
+   JacobiOracle (tests/oracle.py).
+8. Every kernel at north-star shapes against its plain PyTorch version
+   on the card, from one predicted, perturbed state (the Jacobi ones with
+   a box collider and the ground); time both.
+9. One profiled window of each main path's warm Engine (torch.profiler:
+   device time per kernel, the device's busy share of the timed window).
+   It comes last of the timings: once the profiler has run, the host's
+   launches are slower.
 
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.  Imports nothing of JAX.
+Every path runs with the kernels' launch counts set to 0 just before it and
+read just after.  The line before the last is {"kernels": [...]} (per
+kernel: launches on its main path, max error against its plain version,
+the kernel's device time per call (torch.profiler, so the host's launch
+time between calls is not counted), the plain version's time per call
+(CUDA events over back-to-back calls, launch gaps included), the least
+time the card could take (bytes over 3.35 TB/s or operations over
+67 TFLOP/s fp32), and the time of one PyTorch call that computes the same
+function -- null: none does); the last line is {"ok": true, "device":
+{...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
@@ -37,6 +62,11 @@ DT = 1.0 / 60.0
 NORTH_STAR = dict(nx=47, ny=47, nz=47, size=1.0, center=(0.0, 2.0, 0.0))
 SEED = 0
 
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor)
+# operations/s; a kernel's bound is the larger of its two times.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
 # Tolerances, kernel vs plain PyTorch version on the same inputs:
 # - w_fill: the same two IEEE products and one sum per value (no FMA on
 #   either side): 1 ulp of the largest value.
@@ -46,8 +76,23 @@ SEED = 0
 #   per block touching it, and later blocks read those positions.  Positions
 #   within 1e-4 m (~0.5% of an edge's rest length 0.0213 m); lambdas
 #   within 1e-3 of the largest |lambda| of the sweep.
+# - Jacobi passes: one pass from one snapshot; the two sides differ only in
+#   fp32 summation order (CSR order against atomics), a few ulp at
+#   |x| ~ 2 m: within 1e-5 m, and the per-particle counts equal.
+# - collide: the same arithmetic in the same order, no FMA on either side:
+#   within 1e-6 m.
 X_TOL = 1e-4
 LAM_REL_TOL = 1e-3
+PASS_TOL = 1e-5
+COLLIDE_TOL = 1e-6
+ORACLE_TOL = 1e-4
+
+# The in-engine tunings (softbodysim_tpu/api/scenes.py:314-318) and the
+# floor box of four_body_test (scenes.py:360).
+JACOBI = dict(dialect="jacobi", substeps=2, iterations=6,
+              edge_stiffness=0.9, volume_stiffness=0.98, sor_omega=1.4,
+              particle_radius=0.02, gravity=(0.0, -10.0, 0.0))
+FLOOR_BOX_TOP = 0.2
 
 
 def card_line() -> str:
@@ -58,9 +103,10 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls (CUDA events), after
-    one warm-up call."""
+def events_ms(fn, reps: int) -> float:
+    """Mean stream time of ``fn`` over ``reps`` back-to-back calls (CUDA
+    events), after one warm-up call: the host's launch gaps are included,
+    so this times the plain versions as a caller pays for them."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -73,8 +119,130 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare_kernels(sbt, ksw, topo, device) -> dict:
-    """Phase 3: each kernel against its plain version, same inputs."""
+def device_activity(fn) -> tuple:
+    """Run ``fn`` under torch.profiler: ({name: [count, total us]} over the
+    device-side events -- kernels, memory copies and sets --, the host's
+    wall us from the start to a synchronize after ``fn``)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    out = collections.defaultdict(lambda: [0, 0.0])
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            row = out[ev.name]
+            row[0] += 1
+            row[1] += ev.time_range.elapsed_us()
+    return dict(out), wall_us
+
+
+def kernel_ms(fn, reps: int, kernels_per_call: int = 1) -> float:
+    """Device time of one call of a kernel wrapper, from the profiler over
+    ``reps`` calls (after one warm-up call): the sum over its device
+    activities of each one's mean time (each runs once per call; the
+    profiler may drop an event at its start, so a mean, not a total over
+    ``reps``).  The host's launch time between calls is not counted."""
+    fn()
+    acts, _ = device_activity(lambda: [fn() for _ in range(reps)])
+    if len(acts) < kernels_per_call or any(c < reps // 2
+                                           for c, _ in acts.values()):
+        raise AssertionError(f"the profiler saw {acts} for {reps} calls")
+    return sum(t / c for c, t in acts.values()) / 1e3
+
+
+def timed_window(eng, steps: int, windows: int = 3) -> float:
+    """Host-clock ms/step of a warm Engine: ``windows`` windows of
+    ``steps`` steps, each ending in a synchronize; prints each and returns
+    their median (the host shares its cores, so one window can be slow)."""
+    ms = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        eng.run(steps, DT)
+        eng.block()
+        ms.append((time.perf_counter() - t0) * 1e3 / steps)
+    print(f"{eng.backend}: ms/step in {windows} windows of {steps} steps: "
+          f"{', '.join(f'{m:.4f}' for m in ms)}", flush=True)
+    return float(np.median(ms))
+
+
+def _short(name: str) -> str:
+    """A device activity's name without its namespaces and arguments'
+    tail."""
+    for noise in ("void ", "(anonymous namespace)::", "at::native::"):
+        name = name.replace(noise, "")
+    return name.split("(")[0][:72] if not name.startswith("Memcpy") \
+        else name
+
+
+def profile_window(eng, steps: int, timed_ms: float) -> dict:
+    """One profiled window of ``steps`` steps of a warm Engine: per device
+    activity its count and mean us, the device's busy ms per step, and
+    that over ``timed_ms`` (the unprofiled window's ms/step) as the busy
+    share.  The profiled window's own wall time is printed too; the
+    profiler slows the host's launches, so it is not the step's time."""
+    acts, wall_us = device_activity(lambda: eng.run(steps, DT).block())
+    merged = collections.defaultdict(lambda: [0, 0.0])
+    for name, (c, t) in acts.items():
+        row = merged[_short(name)]
+        row[0] += c
+        row[1] += t
+    busy = sum(t for _, t in acts.values()) / 1e3 / steps
+    return {"backend": eng.backend, "steps": steps,
+            "profiled_wall_ms_per_step": wall_us / 1e3 / steps,
+            "device_busy_ms_per_step": busy,
+            "device_busy_share": busy / timed_ms,
+            "device": {name: {"count": c, "mean_us": t / c,
+                              "us_per_step": t / steps}
+                       for name, (c, t) in sorted(merged.items(),
+                                                  key=lambda kv: -kv[1][1])}}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(bytes_moved: float, ops: float) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes / HBM rate and operations
+    / fp32 rate."""
+    tb, to = bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
+
+
+def result(err, ms, plain_ms, bytes_moved, ops) -> dict:
+    b_ms, b_by = bound(bytes_moved, ops)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def report(name, r) -> None:
+    print(f"{name}: max|kernel - plain| {r['max_abs_err']:.3e}, kernel "
+          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+
+
+def reset_counts():
+    from softbodysim_torch.kernels import reset_launch_counts
+
+    reset_launch_counts()
+
+
+def read_counts() -> dict:
+    from softbodysim_torch.kernels import launch_counts
+
+    return launch_counts()
+
+
+# --------------------------------------------------------------------------
+# XPBD (phases 3, 5, 8)
+# --------------------------------------------------------------------------
+
+def compare_sweep_kernels(sbt, ksw, topo, device) -> dict:
+    """Phase 8: each sweep kernel against its plain version, same inputs."""
     from softbodysim_torch.solver.xpbd_sweep import SweepStep
 
     params = sbt.SolverParams(dialect="xpbd", substeps=8, iterations=1)
@@ -99,28 +267,34 @@ def compare_kernels(sbt, ksw, topo, device) -> dict:
     ks = step.block_scheme["local_iters"]
     res = {}
 
-    # w_fill (both families)
-    err, ms, plain_ms = 0.0, 0.0, 0.0
+    # w_fill (both families): the index and count tables and xw read once,
+    # the streamed table written; 2 (edges) or 1 (tets) flops per value
+    err, ms, plain_ms, nb, ops = 0.0, 0.0, 0.0, 0, 0
     for plan in (ep, tp):
         wk = ksw.w_fill(plan, xw)
         wp = ksw.w_fill_plain(plan, xw)
         torch.cuda.synchronize()
         e = (wk - wp).abs().max().item()
-        bound = float(np.finfo(np.float32).eps) * wp.abs().max().item()
-        if not e <= bound:
-            raise AssertionError(f"w_fill disagrees: {e} > {bound}")
+        tol = float(np.finfo(np.float32).eps) * wp.abs().max().item()
+        if not e <= tol:
+            raise AssertionError(f"w_fill disagrees: {e} > {tol}")
         err = max(err, e)
-        ms += cuda_ms(lambda: ksw.w_fill(plan, xw), 20)
-        plain_ms += cuda_ms(lambda: ksw.w_fill_plain(plan, xw), 20)
-    res["w_fill"] = (err, ms, plain_ms)
+        ms += kernel_ms(lambda: ksw.w_fill(plan, xw), 20)
+        plain_ms += events_ms(lambda: ksw.w_fill_plain(plan, xw), 20)
+        nb += nbytes(plan.verts, plan.counts, xw, wk)
+        ops += wk.numel() * (3 if plan.arity == 2 else 1)
+    res["w_fill"] = result(err, ms, plain_ms, nb, ops)
     w_e = ksw.w_fill_plain(ep, xw)
     w_t = ksw.w_fill_plain(tp, xw)
 
-    for name, plan, wtab, k, fn, plain in (
+    # per live lane and visit: ~26 flops (edge) / ~140 (tet); per CSR
+    # entry and visit: 6 (3 products, 3 sums); xw and lambda read and
+    # written once, every plan table read once
+    for name, plan, wtab, k, fn, plain, lane_ops in (
             ("edge_sweep", ep, w_e, ks[0], ksw.edge_sweep,
-             ksw.edge_sweep_plain),
+             ksw.edge_sweep_plain, 26),
             ("tet_sweep", tp, w_t, ks[1], ksw.tet_sweep,
-             ksw.tet_sweep_plain)):
+             ksw.tet_sweep_plain, 140)):
         fam = "edges" if plan is ep else "tets"
         lam0 = torch.zeros(plan.num_blocks * 1024, device=device)
         xa, la = xw.clone(), lam0.clone()
@@ -143,17 +317,23 @@ def compare_kernels(sbt, ksw, topo, device) -> dict:
             raise AssertionError(f"{name}: lambdas disagree ({el})")
         if not moved > 0.0:
             raise AssertionError(f"{name}: the sweep moved nothing")
-        ms = cuda_ms(lambda: fn(plan, xa, la, wtab, alphas[fam], k), 10)
-        plain_ms = cuda_ms(
+        ms = kernel_ms(lambda: fn(plan, xa, la, wtab, alphas[fam], k), 10)
+        plain_ms = events_ms(
             lambda: plain(plan, xb, lb, wtab, alphas[fam], k), 2)
-        res[name] = (max(ex, el), ms, plain_ms)
+        live = int((plan.verts[:, 0] >= 0).sum().item())
+        nb = (2 * nbytes(xw, lam0)
+              + nbytes(plan.verts, plan.rest, plan.scale, plan.atab, wtab,
+                       plan.blk_vptr, plan.cvert, plan.cptr, plan.centry))
+        ops = k * (lane_ops * live + 6 * plan.centry.numel())
+        res[name] = result(max(ex, el), ms, plain_ms, nb, ops)
     return res
 
 
-def main_path(sbt, ksw, topo, device) -> tuple:
-    """Phase 4: the Engine on the card; returns (launch counts, ms/step)."""
+def xpbd_main_path(sbt, topo, device) -> tuple:
+    """Phase 3: the xpbd Engine on the card; (launch counts, ms/step of a
+    timed window, the warm Engine)."""
     params = sbt.SolverParams(dialect="xpbd", substeps=8, iterations=1)
-    ksw.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     eng = sbt.Engine(topo, params, device=device)
     if eng.backend != "sweep":
@@ -161,9 +341,9 @@ def main_path(sbt, ksw, topo, device) -> tuple:
     eng.run(32, DT)
     eng.step(DT)
     eng.block()
-    counts = ksw.launch_counts()
+    counts = read_counts()
     pos = eng.positions()
-    print(f"main path: backend={eng.backend}, 33 steps in "
+    print(f"xpbd main path: backend={eng.backend}, 33 steps in "
           f"{time.perf_counter() - t0:.2f} s (incl. set-up), launches "
           f"{counts}", flush=True)
     if pos.shape != (topo.num_particles, 3):
@@ -172,25 +352,20 @@ def main_path(sbt, ksw, topo, device) -> tuple:
         raise AssertionError("non-finite positions after 33 steps")
     if not pos[:, 1].min() >= -1e-4:
         raise AssertionError(f"min y {pos[:, 1].min()} below the ground")
-    if not all(n > 0 for n in counts.values()):
-        raise AssertionError(f"a kernel was not launched: {counts}")
+    for name in ("w_fill", "edge_sweep", "tet_sweep"):
+        if not counts[name] > 0:
+            raise AssertionError(f"{name} was not launched: {counts}")
     drop = float(topo.vertices[:, 1].mean() - pos[:, 1].mean())
     print(f"positions finite, min y {pos[:, 1].min():.6f}, mean drop "
           f"{drop:.6f} m", flush=True)
     if not drop > 0.0:
         raise AssertionError("the body did not fall")
 
-    n = 20
-    t0 = time.perf_counter()
-    eng.run(n, DT)
-    eng.block()
-    ms_step = (time.perf_counter() - t0) * 1e3 / n
-    return counts, ms_step
+    return counts, timed_window(eng, 20), eng
 
 
-def reference_check(sbt, device) -> float:
+def xpbd_reference_check(sbt, device) -> float:
     """Phase 5: small scene on the card vs the NumPy block oracle."""
-    sys.path.insert(0, os.path.join(ROOT, "tests"))
     from oracle import XpbdOracle
 
     topo = sbt.meshes.tet_cube(4, 4, 4, size=0.5, center=(0.0, 0.6, 0.0))
@@ -217,10 +392,208 @@ def reference_check(sbt, device) -> float:
     err = max(np.abs(s.x.cpu().numpy() - oracle.x).max(),
               np.abs(s.edge_lambda.cpu().numpy() - oracle.edge_lambda).max(),
               np.abs(s.tet_lambda.cpu().numpy() - oracle.tet_lambda).max())
-    print(f"reference check (tet_cube(4), 10 steps vs block oracle): max "
-          f"abs err {err:.3e} (tol 1e-4)", flush=True)
-    if not err <= 1e-4:
+    print(f"xpbd reference check (tet_cube(4), 10 steps vs block oracle): "
+          f"max abs err {err:.3e} (tol {ORACLE_TOL})", flush=True)
+    if not err <= ORACLE_TOL:
         raise AssertionError(f"port disagrees with the oracle ({err})")
+    return err
+
+
+# --------------------------------------------------------------------------
+# Jacobi (phases 4, 6-8)
+# --------------------------------------------------------------------------
+
+def floor_box(sbt, device):
+    return sbt.Colliders.build(
+        [sbt.Colliders.box((0.0, 0.1, 0.0), (1.5, 0.1, 1.5))], device=device)
+
+
+def compare_jacobi_kernels(sbt, topo, device) -> dict:
+    """Phase 8: the Jacobi passes and the collide stage against their plain
+    versions, from one predicted, perturbed state."""
+    from softbodysim_torch.kernels import collide as kc
+    from softbodysim_torch.kernels import jacobi as kj
+
+    params = sbt.SolverParams(**JACOBI)
+    V, E, T = topo.num_particles, topo.num_edges, topo.num_tets
+    t0 = time.perf_counter()
+    ep = kj.edge_pass_plan(V, topo.edges, topo.edge_rest, device=device)
+    tp = kj.tet_pass_plan(V, topo.tets, topo.tet_rest_vol, device=device)
+    print(f"jacobi pass plans (CSR): {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    state = sbt.init_state(topo, inv_mass_mode="density", device=device)
+    sdt = np.float32(DT) / np.float32(params.substeps)
+    rng = np.random.default_rng(SEED + 1)
+    noise = rng.normal(0.0, 1e-3, (V, 3)).astype(np.float32)
+    x = state.x.clone()
+    x[:, 1] -= float(np.float32(10.0) * sdt * sdt)
+    x += torch.as_tensor(noise, device=device)
+    xin = torch.cat([x, state.inv_mass[:, None]], 1).contiguous()
+    k_e, k_t = float(np.float32(params.edge_stiffness)), float(
+        np.float32(params.volume_stiffness))
+    om = float(np.float32(params.sor_omega))
+    res = {}
+
+    # per incident edge ~22 flops, per vertex apply 7; per tet ~130 flops
+    # plus 3 per corner gathered, per vertex apply 7
+    passes = (
+        ("jacobi_edge_pass", ep, k_e, kj.jacobi_edge_pass,
+         kj.jacobi_edge_pass_plain,
+         nbytes(xin, ep.row, ep.ent, ep.rest, ep.k, xin),
+         22 * 2 * E + 7 * V, 1),
+        ("jacobi_tet_pass", tp, k_t, kj.jacobi_tet_pass,
+         kj.jacobi_tet_pass_plain,
+         nbytes(xin, tp.tets, tp.rest, tp.k, tp.row, tp.slot, xin),
+         130 * T + 12 * T + 7 * V, 2))      # two launches: see jacobi.cu
+    for name, plan, k, fn, plain, nb, ops, nkern in passes:
+        xa, xb = torch.empty_like(xin), torch.empty_like(xin)
+        ca = torch.zeros(V, dtype=torch.int32, device=device)
+        cb = torch.zeros_like(ca)
+        fn(plan, xin, xa, k, om, ca)
+        plain(plan, xin, xb, k, om, cb)
+        torch.cuda.synchronize()
+        if not torch.isfinite(xa).all():
+            raise AssertionError(f"{name}: non-finite kernel output")
+        err = (xa - xb).abs().max().item()
+        moved = (xa - xin).abs().max().item()
+        same_cnt = torch.equal(ca, cb)
+        print(f"{name}: max|x_kernel - x_plain| = {err:.3e} m (tol "
+              f"{PASS_TOL}), counts equal {same_cnt} (max "
+              f"{int(ca.max().item())}), max move {moved:.3e} m", flush=True)
+        if not err <= PASS_TOL:
+            raise AssertionError(f"{name}: positions disagree ({err})")
+        if not same_cnt:
+            raise AssertionError(f"{name}: counts disagree")
+        if not moved > 0.0:
+            raise AssertionError(f"{name}: the pass moved nothing")
+        res[name] = result(
+            err, kernel_ms(lambda: fn(plan, xin, xa, k, om), 20, nkern),
+            events_ms(lambda: plain(plan, xin, xb, k, om), 5), nb, ops)
+        report(name, res[name])
+
+    # collide: the body moved down into the floor box and through the
+    # ground plane, so both stages push
+    packed = kc.pack_colliders(floor_box(sbt, device))
+    ground = kc.make_ground(params)
+    xc = xin.clone()
+    xc[:, 1] -= 1.9
+    xa, xb = xc.clone(), xc.clone()
+    kc.collide(xa, packed, ground)
+    kc.collide_plain(xb, packed, ground)
+    torch.cuda.synchronize()
+    err = (xa - xb).abs().max().item()
+    moved = (xa - xc).abs().max().item()
+    free = int((xc[:, 3] != 0).sum().item())
+    pushed = int(((xa - xc).abs().amax(1) > 0).sum().item())
+    print(f"collide: max|x_kernel - x_plain| = {err:.3e} m (tol "
+          f"{COLLIDE_TOL}), {pushed} of {free} free particles pushed, max "
+          f"move {moved:.3e} m", flush=True)
+    if not err <= COLLIDE_TOL:
+        raise AssertionError(f"collide: positions disagree ({err})")
+    if not pushed > 0:
+        raise AssertionError("collide: nothing was pushed")
+    # per particle: ground ~11 flops, an oriented box ~80
+    nb = nbytes(xc, packed) + 12 * free
+    res["collide"] = result(
+        err, kernel_ms(lambda: kc.collide(xa, packed, ground), 20),
+        events_ms(lambda: kc.collide_plain(xb, packed, ground), 5), nb,
+        (11 + 80 * packed.shape[0]) * free)
+    report("collide", res["collide"])
+    return res
+
+
+def jacobi_main_path(sbt, topo, device) -> tuple:
+    """Phase 4: the jacobi Engine at full width on the card; (launch
+    counts, ms/step of a timed window, the warm Engine)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    eng = sbt.Engine(topo, sbt.SolverParams(**JACOBI),
+                     colliders=floor_box(sbt, device), device=device)
+    if eng.backend != "pass":
+        raise AssertionError(f"backend {eng.backend!r}, expected 'pass'")
+    eng.run(32, DT)
+    eng.step(DT)
+    eng.block()
+    counts = read_counts()
+    pos = eng.positions()
+    print(f"jacobi main path: backend={eng.backend}, 33 steps in "
+          f"{time.perf_counter() - t0:.2f} s (incl. set-up), launches "
+          f"{counts}", flush=True)
+    if pos.shape != (topo.num_particles, 3) or not np.isfinite(pos).all():
+        raise AssertionError("non-finite or misshapen positions")
+    free = eng.state.inv_mass.cpu().numpy() != 0
+    min_y = float(pos[free, 1].min())
+    drop = float(topo.vertices[:, 1].mean() - pos[:, 1].mean())
+    print(f"positions finite, free min y {min_y:.6f} (box top "
+          f"{FLOOR_BOX_TOP}), mean drop {drop:.6f} m", flush=True)
+    if not min_y >= FLOOR_BOX_TOP - 1e-3:
+        raise AssertionError(f"a free particle is inside the box ({min_y})")
+    if not drop > 0.0:
+        raise AssertionError("the body did not fall")
+    for name in ("jacobi_edge_pass", "jacobi_tet_pass", "collide"):
+        if not counts[name] > 0:
+            raise AssertionError(f"{name} was not launched: {counts}")
+
+    return counts, timed_window(eng, 20), eng
+
+
+def sample_scene(sbt, device) -> dict:
+    """Phase 6: SampleScene's body and box through the gather backend."""
+    ball = sbt.meshes.tet_ball(2, 0.3)
+    topo = sbt.build_topology(
+        ball.vertices - ball.vertices.mean(0)
+        + np.array([0.0, 1.0, 0.0], np.float32), ball.tets)
+    params = sbt.SolverParams(**{**JACOBI, "edge_stiffness": 0.7,
+                                 "volume_stiffness": 1.0,
+                                 "particle_radius": 0.01})
+    cols = sbt.Colliders.build(
+        [sbt.Colliders.box((0.0, 0.1, 0.0), (0.6, 0.1, 0.6))], device=device)
+    reset_counts()
+    eng = sbt.Engine(topo, params, colliders=cols, density=0.2,
+                     device=device)
+    if eng.backend != "gather":
+        raise AssertionError(f"backend {eng.backend!r}, expected 'gather'")
+    eng.run(60, DT)
+    eng.block()
+    counts = read_counts()
+    pos = eng.positions()
+    print(f"SampleScene body (V={topo.num_particles}, T={topo.num_tets}): "
+          f"backend={eng.backend}, 60 steps, min y {pos[:, 1].min():.6f}, "
+          f"launches {counts}", flush=True)
+    if not np.isfinite(pos).all():
+        raise AssertionError("non-finite positions")
+    if not pos[:, 1].min() >= FLOOR_BOX_TOP - 1e-3:
+        raise AssertionError("the ball went into its box")
+    if not counts["collide"] > 0:
+        raise AssertionError(f"collide was not launched: {counts}")
+    return counts
+
+
+def jacobi_reference_check(sbt, device) -> float:
+    """Phase 7: tet_cube(3) on the card (pass and gather) vs JacobiOracle."""
+    from oracle import JacobiOracle
+
+    topo = sbt.meshes.tet_cube(3, 3, 3, size=0.5, center=(0.0, 0.55, 0.0))
+    box = sbt.Colliders.box((0.0, 0.1, 0.0), (0.6, 0.1, 0.6))
+    engines = {b: sbt.Engine(
+        topo, sbt.SolverParams(**JACOBI, jacobi_backend=b),
+        colliders=sbt.Colliders.build([box], device=device), device=device)
+        for b in ("pass", "gather")}
+    oracle = JacobiOracle(topo, sbt.SolverParams(**JACOBI), colliders=[box])
+    for _ in range(10):
+        oracle.step(DT)
+        for eng in engines.values():
+            eng.step(DT)
+    err = 0.0
+    for b, eng in engines.items():
+        e = float(np.abs(eng.positions() - oracle.x).max())
+        print(f"jacobi reference check ({b}, tet_cube(3) onto a box, 10 "
+              f"steps vs JacobiOracle): max abs err {e:.3e} (tol "
+              f"{ORACLE_TOL}); oracle min y {oracle.x[:, 1].min():.4f}",
+              flush=True)
+        if not e <= ORACLE_TOL:
+            raise AssertionError(f"{b} disagrees with the oracle ({e})")
+        err = max(err, e)
     return err
 
 
@@ -230,6 +603,7 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
     import softbodysim_torch as sbt
     from softbodysim_torch.kernels import _build
     from softbodysim_torch.kernels import sweep as ksw
@@ -242,8 +616,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.load()
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s; nvcc says:",
-          flush=True)
+    print(f"kernel build ({len(_build.SOURCES)} sources): "
+          f"{time.perf_counter() - t0:.2f} s; nvcc says:", flush=True)
     for line in _build.build_log().splitlines():   # registers, smem, spills
         print("  " + line.strip(), flush=True)
 
@@ -252,22 +626,46 @@ def main() -> int:
     print(f"north-star topology V={topo.num_particles} E={topo.num_edges} "
           f"T={topo.num_tets} in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    kres = compare_kernels(sbt, ksw, topo, device)
-    counts, ms_step = main_path(sbt, ksw, topo, device)
-    print(f"north star (8 substeps, 1 iteration): {ms_step:.3f} ms/step, "
-          f"{1e3 / ms_step:.2f} steps/s on {card}", flush=True)
-    reference_check(sbt, device)
+    # the main paths' timed windows first: once torch.profiler has run in
+    # this process, the host's kernel launches are slower
+    x_counts, x_ms, x_eng = xpbd_main_path(sbt, topo, device)
+    print(f"xpbd north star (8 substeps, 1 iteration): {x_ms:.3f} ms/step, "
+          f"{1e3 / x_ms:.2f} steps/s on {card}", flush=True)
+    j_counts, j_ms, j_eng = jacobi_main_path(sbt, topo, device)
+    print(f"jacobi tet_cube(47) (2 substeps, 6 iterations, floor box): "
+          f"{j_ms:.3f} ms/step, {1e3 / j_ms:.2f} steps/s on {card}",
+          flush=True)
+    xpbd_reference_check(sbt, device)
+    sample_scene(sbt, device)
+    jacobi_reference_check(sbt, device)
 
-    src = "softbodysim_torch/kernels/csrc/sweep.cu"
-    replaces = {"w_fill": "softbodysim_tpu/kernels/sweep.py:1118",
-                "edge_sweep": "softbodysim_tpu/kernels/sweep.py:1169",
-                "tet_sweep": "softbodysim_tpu/kernels/sweep.py:1267"}
+    kres = compare_sweep_kernels(sbt, ksw, topo, device)
+    for name in ("w_fill", "edge_sweep", "tet_sweep"):
+        report(name, kres[name])
+    kres.update(compare_jacobi_kernels(sbt, topo, device))
+    for label, eng, steps, ms in (("xpbd north star", x_eng, 4, x_ms),
+                                  ("jacobi tet_cube(47)", j_eng, 20, j_ms)):
+        print(json.dumps({"profile": label,
+                          **profile_window(eng, steps, ms)}), flush=True)
+
+    src = "softbodysim_torch/kernels/csrc/"
+    rows = (
+        ("w_fill", "sweep.cu", "softbodysim_tpu/kernels/sweep.py:1118",
+         x_counts),
+        ("edge_sweep", "sweep.cu", "softbodysim_tpu/kernels/sweep.py:1169",
+         x_counts),
+        ("tet_sweep", "sweep.cu", "softbodysim_tpu/kernels/sweep.py:1267",
+         x_counts),
+        ("jacobi_edge_pass", "jacobi.cu",
+         "softbodysim_tpu/kernels/jacobi.py:71", j_counts),
+        ("jacobi_tet_pass", "jacobi.cu",
+         "softbodysim_tpu/kernels/jacobi.py:158", j_counts),
+        ("collide", "collide.cu", "softbodysim_tpu/kernels/collide.py:136",
+         j_counts))
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src,
-         "replaces": replaces[name], "launches": counts[name],
-         "max_abs_err": kres[name][0], "ms": kres[name][1],
-         "plain_ms": kres[name][2]}
-        for name in ("w_fill", "edge_sweep", "tet_sweep")]}))
+        {"name": name, "route": "cuda", "source": src + cu,
+         "replaces": replaces, "launches": counts[name], **kres[name]}
+        for name, cu, replaces, counts in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

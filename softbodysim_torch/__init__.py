@@ -1,8 +1,10 @@
 """softbodysim_torch -- the PyTorch / CUDA port of softbodysim_tpu.
 
-The XPBD dialect on one large scene, on hand-written CUDA sweep kernels for
-an NVIDIA Hopper GPU (kernels/csrc/sweep.cu), with the same host plans,
-block order and API as the JAX package::
+Two solver dialects on one scene, on hand-written CUDA kernels for an
+NVIDIA Hopper GPU (kernels/csrc/*.cu), with the API of the JAX package:
+the XPBD dialect on the block-synchronous sweep kernels (the JAX package's
+host plans and block order), and the Jacobi dialect (the in-engine
+contract) on the Jacobi pass kernels and the fused collide kernel::
 
     import softbodysim_torch as sbt
 
@@ -12,9 +14,15 @@ block order and API as the JAX package::
     eng.run(32)
     pos = eng.positions()
 
-On a CPU device the kernels' plain PyTorch versions run instead (tests).
+    jac = sbt.Engine(topo, sbt.SolverParams(dialect="jacobi"),
+                     colliders=sbt.Colliders.build(
+                         [sbt.Colliders.box((0, 0.1, 0), (1.5, 0.1, 1.5))]))
+
+Entry points run on the card (``cuda:0``) unless given ``device="cpu"``,
+where the kernels' plain PyTorch versions run instead (the tests).
 """
 
+from .collide.primitives import Colliders
 from .core.state import SimState, SolverParams, init_state
 from .core.topology import Topology, build_topology
 from .core import meshes
@@ -24,6 +32,6 @@ from .api.engine import Engine
 __version__ = "0.1.0"
 
 __all__ = [
-    "SimState", "SolverParams", "init_state", "Topology", "build_topology",
-    "meshes", "make_step", "Engine",
+    "Colliders", "SimState", "SolverParams", "init_state", "Topology",
+    "build_topology", "meshes", "make_step", "Engine",
 ]

@@ -1,12 +1,17 @@
 """Engine: one scene, one device, stepped in place.
 
-``Engine(topology, params, device=...)`` builds the initial state (inverse
-masses, rest state, zero lambdas) and the solver step; ``step(dt)`` and
-``run(n, dt)`` advance it; ``positions()`` returns the committed positions.
-Backends with a carry API (the sweep backend) keep their internal layout on
-the device between calls: the public state is materialized lazily on
-access, so the layout / lambda boundary is paid once per state transfer,
-not once per step.
+``Engine(topology, params, colliders=..., device=...)`` builds the initial
+state (inverse masses, rest state, zero lambdas) and the solver step;
+``step(dt)`` and ``run(n, dt)`` advance it; ``positions()`` returns the
+committed positions.  Backends with a carry API (the sweep and pass
+backends) keep their internal layout on the device between calls: the
+public state is materialized lazily on access, so the layout / lambda
+boundary is paid once per state transfer, not once per step.
+
+Colliders (jacobi dialect) are runtime poses: the engine's current set goes
+to every step, so ``update_colliders`` moves them without rebuilding the
+step (the reference rebuilds its collider snapshot every step,
+SoftBodyManager.cs:239-261).
 """
 
 from __future__ import annotations
@@ -16,13 +21,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..collide.primitives import Colliders
 from ..core.state import SimState, SolverParams, init_state, resolve_device
 from ..core.topology import Topology
 from ..solver import make_step
 
 
 class Engine:
-    """Single-scene simulation engine on one device (default: the CPU)."""
+    """Single-scene simulation engine on one device (default: the card;
+    ``device="cpu"`` runs the kernels' plain PyTorch versions)."""
 
     _carry = None
     _state_stale = False
@@ -31,33 +38,34 @@ class Engine:
     RUN_CHUNK = 32
 
     def __init__(self, topology: Topology, params: SolverParams,
-                 colliders=None, pinned=None,
+                 colliders: Optional[Colliders] = None, pinned=None,
                  inv_mass_mode: Optional[str] = None, density: float = 1.0,
                  pin_top_layer: bool = False, mesh=None, device=None,
                  **solver_kw):
-        """``solver_kw``: per-constraint compliance tables ``edge_c`` /
-        ``tet_c`` (public order).  ``colliders`` and ``mesh`` are not ported
-        yet and raise."""
+        """``solver_kw``: per-constraint tables (``edge_c`` / ``tet_c``
+        compliance for xpbd, ``edge_k`` / ``tet_k`` stiffness for jacobi,
+        public order) and, for jacobi, ``local_to_world`` /
+        ``world_to_local``.  ``colliders`` work on the jacobi dialect;
+        ``mesh`` is not ported yet and raises."""
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device meshes are not ported yet (ROADMAP.md queue 1 "
                 "item 12)")
-        if colliders is not None:
-            raise NotImplementedError(
-                "colliders are not ported yet (ROADMAP.md queue 1 item 3)")
         if inv_mass_mode is None:
             # server dialect: tet-volume inverse masses; in-engine: density
             inv_mass_mode = "tet" if params.dialect == "xpbd" else "density"
         self.device = resolve_device(device)
         self.topology = topology
         self.params = params
+        self.colliders = (None if colliders is None
+                          else colliders.to(self.device))
         self._inv_mass_mode = inv_mass_mode
         self.state: SimState = init_state(
             topology, pinned=pinned, inv_mass_mode=inv_mass_mode,
             density=density, pin_top_layer=pin_top_layer,
             device=self.device)
-        self._raw_step = make_step(topology, params, device=self.device,
-                                   **solver_kw)
+        self._raw_step = make_step(topology, params, self.colliders,
+                                   device=self.device, **solver_kw)
 
     # ---- lazy public state over the carry backends -----------------------
 
@@ -80,9 +88,16 @@ class Engine:
             self._carry = self._raw_step.pack_state(self._state)
             self._state_stale = False
 
+    def _with_colliders(self, overrides: dict) -> dict:
+        if self.colliders is not None and "colliders_rt" not in overrides:
+            overrides["colliders_rt"] = self.colliders
+        return overrides
+
     def step(self, dt: float = 1.0 / 60.0, **overrides) -> "Engine":
-        """One step; overrides (per-step compliance scalars) go to the
-        solver step."""
+        """One step; overrides go to the solver step (per-step compliance
+        or stiffness scalars and omega; jacobi: ``colliders_rt`` and body
+        transforms for this step)."""
+        overrides = self._with_colliders(overrides)
         rc = getattr(self._raw_step, "run_carry", None)
         if rc is not None:
             self._ensure_carry()
@@ -99,22 +114,33 @@ class Engine:
             for _ in range(steps):
                 self.step(dt)
             return self
+        kw = self._with_colliders({})
         self._ensure_carry()
         for _ in range(steps // self.RUN_CHUNK):
-            self._carry = rc(self._carry, dt, self.RUN_CHUNK)
+            self._carry = rc(self._carry, dt, self.RUN_CHUNK, **kw)
         for _ in range(steps % self.RUN_CHUNK):
-            self._carry = rc(self._carry, dt, 1)
+            self._carry = rc(self._carry, dt, 1, **kw)
         self._state_stale = True
+        return self
+
+    def update_colliders(self, colliders: Colliders) -> "Engine":
+        """New collider poses for the following steps (same count as the
+        engine's set; ``switch_params`` changes the set itself)."""
+        if self.colliders is None or colliders.count != self.colliders.count:
+            raise ValueError("collider count must match the template; use "
+                             "switch_params to change the set")
+        self.colliders = colliders.to(self.device)
         return self
 
     @property
     def backend(self) -> Optional[str]:
-        """The concrete solver backend the step resolved to ("sweep")."""
+        """The concrete solver backend the step resolved to ("sweep",
+        "pass", "gather", "segment")."""
         return getattr(self._raw_step, "backend", None)
 
     def positions_device(self) -> torch.Tensor:
         """Committed positions (V, 3) on the device; on a carry backend a
-        row gather, without the lambda unpack."""
+        row read, without the lambda unpack."""
         if self._carry is not None and self._state_stale:
             return self._raw_step.carry_positions(self._carry)
         return self.state.x
@@ -139,11 +165,17 @@ class Engine:
             torch.cuda.synchronize(self.device)
         return self
 
-    def switch_params(self, params: SolverParams, **solver_kw) -> "Engine":
-        """Swap the solver configuration mid-run; x, v and the lambdas
-        carry over."""
+    def switch_params(self, params: SolverParams,
+                      colliders: Optional[Colliders] = "unchanged",
+                      **solver_kw) -> "Engine":
+        """Swap the solver configuration (and, given ``colliders``, the
+        collider set) mid-run; x, v and the lambdas carry over."""
+        if isinstance(colliders, str) and colliders == "unchanged":
+            colliders = self.colliders
         self.params = params
+        self.colliders = (None if colliders is None
+                          else colliders.to(self.device))
         self.state = self.state       # materialize, then drop the old carry
-        self._raw_step = make_step(self.topology, params, device=self.device,
-                                   **solver_kw)
+        self._raw_step = make_step(self.topology, params, self.colliders,
+                                   device=self.device, **solver_kw)
         return self

@@ -14,14 +14,21 @@ import numpy as np
 import torch
 
 
+def f32(x) -> float:
+    """x rounded to float32, as a Python float (exact in either width): a
+    scalar the kernels and the plain versions round alike."""
+    return float(np.float32(x))
+
+
 def resolve_device(device=None) -> torch.device:
-    """``device`` as a torch.device (default: the CPU).  A CUDA device
-    without a usable card raises: nothing falls back to the CPU."""
-    dev = torch.device("cpu" if device is None else device)
+    """``device`` as a torch.device (default: the card, ``cuda:0``; the CPU
+    only when asked for).  A CUDA device without a usable card raises:
+    nothing falls back to the CPU."""
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but torch.cuda.is_available() "
-            "is false")
+            "is false (pass device='cpu' to run on the CPU)")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {str(dev)!r} (cpu|cuda)")
     return dev
@@ -56,9 +63,11 @@ class SolverParams:
 
     The port runs the 'xpbd' dialect on the block-synchronous sweep backend
     (``xpbd_backend`` 'sweep', or its alias 'pallas'; 'auto' picks it on a
-    CUDA device at >= 100k constraints).  Knobs of slices not yet ported
-    are accepted and raise NotImplementedError where a step would use
-    them."""
+    CUDA device at >= 100k constraints) and the 'jacobi' dialect on the
+    'segment', 'gather' and 'pass' backends (``jacobi_backend``; 'pallas'
+    is an alias of 'pass', which 'auto' picks on a CUDA device at >= 100k
+    constraints).  Knobs of slices not yet ported are accepted and raise
+    NotImplementedError where a step would use them."""
 
     substeps: int = 2
     iterations: int = 6
@@ -114,7 +123,8 @@ class SolverParams:
 def init_state(topology, pinned=None, *, inv_mass_mode: str = "tet",
                density: float = 1.0, pin_top_layer: bool = False,
                pin_top_epsilon: float = 1e-4, device=None) -> SimState:
-    """A fresh SimState on ``device``: zero velocities, x_star = x,
+    """A fresh SimState on ``device`` (default: the card): zero
+    velocities, x_star = x,
     lambdas = 0, inverse masses from tet volumes, pinned rows zeroed.
 
     inv_mass_mode:

@@ -1,31 +1,38 @@
-"""Build and load the CUDA sweep kernels (``csrc/sweep.cu``).
+"""Build and load the CUDA kernels (every ``csrc/*.cu``) as one library.
 
-``nvcc`` compiles the source at first use into a shared library with a
-plain C interface (no PyTorch headers, so the build takes seconds), placed
-in ``softbodysim_torch/_build/kernels/`` under a name keyed by a hash of
-the source and the flags; ctypes loads it.  A failed build raises: there is
-no fallback to the plain PyTorch versions on a CUDA device.
+``nvcc`` compiles each source at first use into an object file -- one
+compiler per source, all started together (a timed-out compiler is
+killed) -- and links them into a shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds), placed in ``softbodysim_torch/_build/kernels/`` under a name keyed
+by a hash of all the sources and the flags; ctypes loads it.  A failed
+build raises: there is no fallback to the plain PyTorch versions on a CUDA
+device.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 _KDIR = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_KDIR, "csrc", "sweep.cu")
+SOURCES = tuple(sorted(glob.glob(os.path.join(_KDIR, "csrc", "*.cu"))))
 BUILD_DIR = os.path.join(os.path.dirname(_KDIR), "_build", "kernels")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + (
+    "-std=c++17", "-O3",
     # no FMA contraction: round as the plain PyTorch versions do
     "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",          # registers / shared memory / spills in the log
 )
+TIMEOUT = 900
 
 
 def _nvcc() -> str:
@@ -38,28 +45,51 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"libsbs_sweep-{key[:16]}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libsbs_kernels-{h.hexdigest()[:16]}.so")
+
+
+def _run(cmd):
+    return subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=TIMEOUT)
 
 
 def build() -> str:
-    """Compile the library unless this source already has one; its path.
-    The compiler's output (ptxas resource report) goes to ``<lib>.log``."""
+    """Compile the library unless these sources already have one; its
+    path.  The compilers' output (ptxas resource report) goes to
+    ``<lib>.log``."""
     out = library_path()
     if os.path.exists(out):
         return out
+    if not SOURCES:
+        raise RuntimeError(f"no CUDA sources under {_KDIR}/csrc")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    nvcc, tag = _nvcc(), f"{out}.{os.getpid()}"
+    objs = [f"{tag}.{os.path.basename(s)}.o" for s in SOURCES]
+    try:
+        with ThreadPoolExecutor(len(SOURCES)) as pool:   # one nvcc each
+            runs = list(pool.map(
+                lambda so: _run([nvcc, *NVCC_FLAGS, "-c", "-o", so[1],
+                                 so[0]]), zip(SOURCES, objs)))
+        log = "".join(f"== {os.path.basename(s)}\n{r.stdout}{r.stderr}"
+                      for s, r in zip(SOURCES, runs))
+        if any(r.returncode for r in runs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        link = _run([nvcc, *ARCH, "-shared", "-o", f"{tag}.so", *objs])
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     with open(out + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+        f.write(log + link.stdout + link.stderr)
+    os.replace(f"{tag}.so", out)
     return out
 
 
@@ -77,12 +107,19 @@ def load() -> ctypes.CDLL:
     """The built library with every entry point's ctypes signature set."""
     lib = ctypes.CDLL(build())
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sbs_w_fill.restype = i
-    lib.sbs_w_fill.argtypes = [p, p, p, p, i, i, p]
-    lib.sbs_edge_sweep.restype = i
-    lib.sbs_edge_sweep.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
-                                   i, f, i, p]
-    lib.sbs_tet_sweep.restype = i
-    lib.sbs_tet_sweep.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
-                                  i, f, i, i, p]
+    signatures = {
+        # sweep.cu
+        "sbs_w_fill": [p, p, p, p, i, i, p],
+        "sbs_edge_sweep": [p, p, p, p, p, p, p, p, p, p, p, i, f, i, p],
+        "sbs_tet_sweep": [p, p, p, p, p, p, p, p, p, p, p, i, f, i, i, p],
+        # jacobi.cu
+        "sbs_jacobi_edge_pass": [p, p, p, p, p, p, i, f, f, p, p],
+        "sbs_jacobi_tet_pass": [p, p, p, p, p, p, p, p, i, i, f, f, p, p],
+        # collide.cu
+        "sbs_collide": [p, i, p, i, i, f, f, f, f, f, f, f, p],
+    }
+    for name, args in signatures.items():
+        fn = getattr(lib, name)
+        fn.restype = i
+        fn.argtypes = args
     return lib

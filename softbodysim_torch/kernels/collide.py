@@ -1,0 +1,130 @@
+"""PyTorch wrapper of the fused collide kernel (``csrc/collide.cu``), with
+its plain PyTorch version beside it.
+
+* ``collide`` -- replaces ``softbodysim_tpu/kernels/collide.py::
+  _collide_kernel``: the ground plane, then every collider in order, in one
+  pass over the particles.
+
+The wrapper works in place on a (V, 4) f32 table of rows x, y, z, inverse
+mass (the layout of the pass backend; the gather and segment backends
+build it around the call) and writes only free rows.  It runs the plain
+version for a table on the CPU and launches the kernel for a table on a
+CUDA device, raising if the launch is refused; ``collide.launches`` counts
+the kernel launches and nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..collide.primitives import (Colliders, collide_particles,
+                                  project_ground_plane)
+from ..core.state import f32, resolve_device
+from .sweep import _check, _lib, _ptr, _raise_on, _stream
+
+COLUMNS = 12        # [type, pos3, quat4, data3, active]
+
+
+class Ground(NamedTuple):
+    """The ground plane as float32-exact Python floats: the unit normal,
+    a point on the plane and the particle radius (floored at 1e-6)."""
+
+    enabled: bool
+    point: tuple
+    normal: tuple
+    radius: float
+
+
+def make_ground(params) -> Ground:
+    """The jacobi dialect's ground (solver/jacobi.py:283-288 of the JAX
+    package): a normal shorter than 1e-6 becomes (0, 1, 0)."""
+    gn = np.asarray(params.ground_normal, np.float32)
+    n2 = float(np.dot(gn, gn))
+    gn = (gn / np.float32(np.sqrt(n2)) if n2 >= 1e-12
+          else np.array([0.0, 1.0, 0.0], np.float32))
+    return Ground(
+        enabled=bool(params.ground_enabled),
+        point=tuple(float(v) for v in np.asarray(params.ground_point,
+                                                 np.float32)),
+        normal=tuple(float(v) for v in gn.astype(np.float32)),
+        radius=f32(max(1e-6, params.particle_radius)))
+
+
+def pack_colliders(colliders: Optional[Colliders], device=None):
+    """(K, 12) f32 table [type, pos3, quat4, data3, active] on the
+    colliders' device (``device``, default the card, for None); one
+    inactive zero row for an empty set (as the JAX package packs it)."""
+    if colliders is None or colliders.count == 0:
+        dev = (colliders.device if colliders is not None and device is None
+               else resolve_device(device))
+        return torch.zeros((1, COLUMNS), dtype=torch.float32, device=dev)
+    k, ft = colliders.count, torch.float32
+    return torch.cat([
+        colliders.type.to(ft).reshape(k, 1),
+        colliders.position.to(ft).reshape(k, 3),
+        colliders.rotation.to(ft).reshape(k, 4),
+        colliders.data.to(ft).reshape(k, 3),
+        colliders.active.to(ft).reshape(k, 1)], 1).contiguous()
+
+
+def unpack_colliders(packed: torch.Tensor) -> Colliders:
+    """The Colliders view of a packed table."""
+    return Colliders(type=packed[:, 0].to(torch.int32),
+                     position=packed[:, 1:4], rotation=packed[:, 4:8],
+                     data=packed[:, 8:11], active=packed[:, 11] != 0.0)
+
+
+def collide_plain(xw: torch.Tensor, packed: torch.Tensor,
+                  ground: Ground) -> torch.Tensor:
+    """``project_ground_plane`` then ``collide_particles`` on the free rows
+    of ``xw``, in place; returns xw."""
+    p = xw[:, :3]
+    if ground.enabled:
+        point, normal = (torch.tensor(v, dtype=torch.float32,
+                                      device=xw.device)
+                         for v in (ground.point, ground.normal))
+        p = project_ground_plane(p, ground.radius, point, normal)
+    p = collide_particles(p, ground.radius, unpack_colliders(packed))
+    xw[:, :3] = torch.where((xw[:, 3] != 0.0)[:, None], p, xw[:, :3])
+    return xw
+
+
+def _check_table(xw: torch.Tensor) -> torch.device:
+    if not isinstance(xw, torch.Tensor) or xw.dim() != 2 \
+            or xw.shape[1] != 4:
+        raise ValueError("xw must be a (V, 4) tensor")
+    dev = xw.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    _check(xw, "xw", torch.float32, xw.shape, dev)
+    return dev
+
+
+def collide(xw: torch.Tensor, packed: torch.Tensor,
+            ground: Ground) -> torch.Tensor:
+    """The whole collide stage on the free rows of ``xw``, in place;
+    returns xw.  ``packed``: a (K, 12) table from ``pack_colliders`` on
+    xw's device."""
+    dev = _check_table(xw)
+    if packed.dim() != 2 or packed.shape[1] != COLUMNS:
+        raise ValueError(f"packed must be (K, {COLUMNS}), got "
+                         f"{tuple(packed.shape)}")
+    _check(packed, "packed", torch.float32, packed.shape, dev)
+    if dev.type == "cpu":
+        return collide_plain(xw, packed, ground)
+    (gpx, gpy, gpz), (gnx, gny, gnz) = ground.point, ground.normal
+    f = ctypes.c_float
+    rc = _lib().sbs_collide(
+        _ptr(xw), xw.shape[0], _ptr(packed), packed.shape[0],
+        int(ground.enabled), f(gpx), f(gpy), f(gpz), f(gnx), f(gny), f(gnz),
+        f(ground.radius), _stream(dev))
+    _raise_on(rc, "collide")
+    collide.launches += 1
+    return xw
+
+
+collide.launches = 0

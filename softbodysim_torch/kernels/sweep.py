@@ -333,12 +333,3 @@ def tet_sweep(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
 
 tet_sweep.launches = 0
 
-
-def reset_launch_counts() -> None:
-    for fn in (w_fill, edge_sweep, tet_sweep):
-        fn.launches = 0
-
-
-def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in (w_fill, edge_sweep,
-                                                 tet_sweep)}

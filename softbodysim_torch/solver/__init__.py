@@ -1,19 +1,19 @@
 """Solver dialects (see core.state.SolverParams.dialect)."""
 
+from .jacobi import make_jacobi_step
 from .xpbd import make_xpbd_step
 
 
 def make_step(topology, params, colliders=None, *, device=None, **kw):
-    """Dispatch on params.dialect: 'xpbd' (server contract); 'jacobi'
-    (in-engine contract) is not ported yet."""
+    """Dispatch on params.dialect: 'xpbd' (server contract) or 'jacobi'
+    (in-engine contract), on ``device`` (default: the card)."""
     if params.dialect == "xpbd":
         return make_xpbd_step(topology, params, colliders=colliders,
                               device=device, **kw)
     if params.dialect == "jacobi":
-        raise NotImplementedError(
-            "the jacobi dialect is not ported yet (ROADMAP.md queue 1 "
-            "item 7)")
+        return make_jacobi_step(topology, params, colliders=colliders,
+                                device=device, **kw)
     raise ValueError(f"unknown dialect {params.dialect!r}")
 
 
-__all__ = ["make_step", "make_xpbd_step"]
+__all__ = ["make_step", "make_xpbd_step", "make_jacobi_step"]

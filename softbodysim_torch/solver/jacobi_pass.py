@@ -1,0 +1,167 @@
+"""Jacobi-dialect solver on the CUDA pass kernels -- the large-scene path.
+
+The counterpart of ``softbodysim_tpu/solver/jacobi_pallas.py``, as
+``xpbd_sweep.py`` is of ``xpbd_pallas.py``: the same physics contract as
+``solver/jacobi.py`` (predict; ``params.iterations`` x {edge pass, tet
+pass, ground plane and colliders, Chebyshev blend if set}; velocity
+update), each gather + apply stage one call of ``kernels/jacobi.py``.  Pure
+Jacobi reads one snapshot per pass, so this matches the segment and gather
+backends (and ``tests/oracle.py::JacobiOracle``) up to fp32 summation
+order.
+
+The collide stage is the fused collide kernel (``kernels/collide.py``) for
+the ground plane and the colliders together; the JAX package's Pallas
+backend ran this stage as XLA ops (``jacobi_pallas.py:187-203``).  Body
+transforms and self / surface collision are not supported here
+(``make_jacobi_step`` routes transforms to 'gather').
+
+Internal layout (one device, public vertex order, no permutation):
+  xw : (V, 4) f32 -- positions + inverse mass (the current snapshot)
+  xs : (V, 4) f32 -- the other table of the double-buffered passes
+  vv : (V, 3) f32 -- velocities
+Between substeps xw holds the committed positions.  Stepping updates the
+tables in place (saving a table per pass) and swaps xw / xs; ``run_carry``
+returns the carry with the current table first.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..collide.primitives import Colliders
+from ..core.state import SimState, SolverParams, f32, resolve_device
+from ..kernels import collide as kc
+from ..kernels import jacobi as kj
+from .accel import chebyshev_loop
+from .jacobi import runtime_colliders
+
+
+class PassCarry(NamedTuple):
+    xw: torch.Tensor
+    xs: torch.Tensor
+    vv: torch.Tensor
+
+
+class JacobiPassStep:
+    """``step(state, dt) -> state`` on the pass kernels, with the carry API
+    of the sweep backend: ``pack_state`` -> ``run_carry``* ->
+    ``unpack_state``; ``carry_positions`` reads the committed positions.
+
+    edge_k / tet_k: optional per-constraint stiffness (public order); the
+    step-time stiffness scalars then multiply them (default 1.0).  Built
+    by ``make_jacobi_step``, which rejects what this backend lacks."""
+
+    backend = "pass"
+
+    def __init__(self, topology, params: SolverParams,
+                 colliders: Optional[Colliders] = None, *, device=None,
+                 edge_k=None, tet_k=None):
+        dev = self.device = resolve_device(device)
+        self.params = params
+        V = topology.num_particles
+        self.edge_plan = (kj.edge_pass_plan(V, topology.edges,
+                                            topology.edge_rest, edge_k, dev)
+                          if topology.num_edges else None)
+        self.tet_plan = (kj.tet_pass_plan(V, topology.tets,
+                                          topology.tet_rest_vol, tet_k, dev)
+                         if topology.num_tets else None)
+        self._per_k = (edge_k is not None, tet_k is not None)
+        self.colliders = None if colliders is None else colliders.to(dev)
+        self.ground = kc.make_ground(params)
+        self.do_collide = params.ground_enabled or (
+            colliders is not None and colliders.count > 0)
+        self._gravity = torch.tensor(params.gravity, dtype=torch.float32,
+                                     device=dev)
+
+    # ---- public <-> internal layout --------------------------------------
+
+    def pack_state(self, state: SimState) -> PassCarry:
+        """Public state -> carry (new tensors; ``state`` is not touched and
+        serves as the template for ``unpack_state``)."""
+        dev = self.device
+        xw = torch.cat([state.x.to(dev, torch.float32),
+                        state.inv_mass.to(dev, torch.float32)[:, None]],
+                       1).contiguous()
+        return PassCarry(xw=xw, xs=torch.empty_like(xw),
+                         vv=state.v.to(dev, torch.float32).clone())
+
+    def unpack_state(self, carry: PassCarry, state: SimState) -> SimState:
+        """Carry -> public state (new tensors; ``state`` supplies inv_mass
+        and the lambdas, which this dialect does not use)."""
+        x = carry.xw[:, :3].clone()
+        return SimState(x=x, v=carry.vv.clone(), x_star=x,
+                        inv_mass=state.inv_mass,
+                        edge_lambda=state.edge_lambda,
+                        tet_lambda=state.tet_lambda)
+
+    def carry_positions(self, carry: PassCarry) -> torch.Tensor:
+        """Committed positions (V, 3) straight off the carry (a copy)."""
+        return carry.xw[:, :3].clone()
+
+    # ---- stepping ---------------------------------------------------------
+
+    def run_carry(self, carry: PassCarry, dt, n: int, edge_stiffness=None,
+                  volume_stiffness=None, sor_omega=None,
+                  colliders_rt: Optional[Colliders] = None) -> PassCarry:
+        """n steps on the carry's tables, in place; returns the carry with
+        the current table first."""
+        p = self.params
+        k_edge = f32((1.0 if self._per_k[0] else p.edge_stiffness)
+                     if edge_stiffness is None else edge_stiffness)
+        k_vol = f32((1.0 if self._per_k[1] else p.volume_stiffness)
+                    if volume_stiffness is None else volume_stiffness)
+        omega = f32(p.sor_omega if sor_omega is None else sor_omega)
+        cols = runtime_colliders(self.colliders, colliders_rt, self.device)
+        packed = kc.pack_colliders(cols, self.device)
+
+        ss = max(1, p.substeps)
+        sdt = np.float32(dt) / np.float32(ss)
+        inv_dt = float(np.float32(1.0) / sdt) if sdt > 0 else 0.0
+        sdt = float(sdt)
+        bufs = [carry.xw, carry.xs]
+        free = carry.xw[:, 3:4] != 0.0
+
+        def iteration(x):
+            y = bufs[1] if x is bufs[0] else bufs[0]
+            if self.edge_plan is not None:
+                kj.jacobi_edge_pass(self.edge_plan, x, y, k_edge, omega)
+                x, y = y, x
+            if self.tet_plan is not None:
+                kj.jacobi_tet_pass(self.tet_plan, x, y, k_vol, omega)
+                x, y = y, x
+            if self.do_collide:
+                kc.collide(x, packed, self.ground)
+            return x
+
+        def set_rows(x, rows):
+            x[:, :3] = rows
+            return x
+
+        x, vv = carry.xw, carry.vv
+        for _ in range(int(n) * ss):
+            # PreSolve (SoftBodySolver.cs:349-362): pinned velocities zeroed
+            xp = x[:, :3].clone()
+            vv.copy_(torch.where(free, vv + self._gravity * sdt, 0.0))
+            x[:, :3] = torch.where(free, xp + vv * sdt, xp)
+            x = chebyshev_loop(iteration, x, p,
+                               get=lambda t: t[:, :3].clone(), set_=set_rows)
+            # PostSolve (SoftBodySolver.cs:364-377)
+            vv.copy_(torch.where(free, (x[:, :3] - xp) * inv_dt, 0.0))
+        return PassCarry(xw=x, xs=bufs[1] if x is bufs[0] else bufs[0],
+                         vv=vv)
+
+    def __call__(self, state: SimState, dt, edge_stiffness=None,
+                 volume_stiffness=None, sor_omega=None,
+                 colliders_rt: Optional[Colliders] = None) -> SimState:
+        return self.step_n(state, dt, 1, edge_stiffness, volume_stiffness,
+                           sor_omega, colliders_rt)
+
+    def step_n(self, state: SimState, dt, n: int, edge_stiffness=None,
+               volume_stiffness=None, sor_omega=None,
+               colliders_rt: Optional[Colliders] = None) -> SimState:
+        carry = self.run_carry(self.pack_state(state), dt, n, edge_stiffness,
+                               volume_stiffness, sor_omega, colliders_rt)
+        return self.unpack_state(carry, state)

@@ -26,7 +26,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core.state import SimState, SolverParams, resolve_device
+from ..core.state import SimState, SolverParams, f32, resolve_device
 from ..kernels import sweep as sw
 from ..kernels import sweep_plan as sp
 
@@ -142,11 +142,6 @@ class Carry(NamedTuple):
     w_t: Optional[torch.Tensor]
 
 
-def _f32(x) -> float:
-    """x rounded to float32, as a Python float (exact in either width)."""
-    return float(np.float32(x))
-
-
 class SweepStep:
     """``step(state, dt) -> state`` on the sweep kernels, with the carry
     API: ``pack_state`` -> ``run_carry``* -> ``unpack_state`` keeps the
@@ -160,7 +155,8 @@ class SweepStep:
                  device=None, edge_c=None, tet_c=None):
         if colliders is not None:
             raise NotImplementedError(
-                "colliders are not ported yet (ROADMAP.md queue 1 item 3)")
+                "colliders on the xpbd sweep backend are not ported yet "
+                "(ROADMAP.md queue 1 item 5)")
         if params.xpbd_x_dtype == "bfloat16":
             raise NotImplementedError(
                 "xpbd_x_dtype='bfloat16' is not ported yet (ROADMAP.md "
@@ -261,7 +257,8 @@ class SweepStep:
     def _resolve(self, edge_compliance, volume_compliance, colliders_rt):
         if colliders_rt is not None:
             raise NotImplementedError(
-                "colliders are not ported yet (ROADMAP.md queue 1 item 3)")
+                "colliders on the xpbd sweep backend are not ported yet "
+                "(ROADMAP.md queue 1 item 5)")
         # with per-constraint tables the scalars SCALE the tables
         p = self.params
         ec = ((1.0 if self._edge_c is not None else p.edge_compliance)
@@ -298,7 +295,7 @@ class SweepStep:
         vv.copy_(torch.where(free, vv + self._gravity * sdt, vv))
         xw[:, :3] = torch.where(free, xp + vv * sdt, xp)
         ep, tp = self.device_plans.get("edges"), self.device_plans.get("tets")
-        ground_y = _f32(p.ground_y)
+        ground_y = f32(p.ground_y)
         for _ in range(p.iterations):
             if ep is not None:
                 sw.edge_sweep(ep, xw, c.lam_e, c.w_e, e_alpha, self._e_k)
@@ -311,8 +308,8 @@ class SweepStep:
         xs = xw[:, :3]
         vel = (xs - xp) * inv_dt
         if p.ground_enabled:
-            on_g = xs[:, 1] <= _f32(p.ground_y + 1e-6)
-            keep = _f32(1.0 - min(1.0, max(0.0, p.friction)))
+            on_g = xs[:, 1] <= f32(p.ground_y + 1e-6)
+            keep = f32(1.0 - min(1.0, max(0.0, p.friction)))
             vx = torch.where(on_g, vel[:, 0] * keep, vel[:, 0])
             vz = torch.where(on_g, vel[:, 2] * keep, vel[:, 2])
             vy = torch.where(on_g & (vel[:, 1] < 0.0), 0.0, vel[:, 1])

@@ -22,7 +22,7 @@ from softbodysim_tpu.solver.xpbd_pallas import make_xpbd_pallas_step
 import softbodysim_torch as sbt
 from softbodysim_torch.io.from_jax import (params_from_fields,
                                            state_from_numpy, state_to_numpy)
-from softbodysim_torch.kernels import sweep as ksw
+from softbodysim_torch.kernels import launch_counts
 from softbodysim_torch.solver.select import resolve_backend
 
 DT = 1.0 / 60.0
@@ -49,7 +49,7 @@ def test_slice_matches_jax_interpret():
 
     params = params_from_fields(jparams).replace(xpbd_backend="pallas")
     assert params == _sweep_params().replace(xpbd_backend="pallas")
-    eng = sbt.Engine(_topo(), params)
+    eng = sbt.Engine(_topo(), params, device="cpu")
     assert eng.backend == "sweep"
     eng.state = state_from_numpy(start, "cpu")
     step = eng._raw_step
@@ -73,8 +73,8 @@ def test_slice_matches_jax_interpret():
 
 
 def test_run_carry_equals_single_steps():
-    step = sbt.make_step(_topo(), _sweep_params())
-    s0 = sbt.init_state(_topo())
+    step = sbt.make_step(_topo(), _sweep_params(), device="cpu")
+    s0 = sbt.init_state(_topo(), device="cpu")
     carry = step.pack_state(s0)
     step.run_carry(carry, DT, 5)
     a = step.unpack_state(carry, s0)
@@ -89,7 +89,7 @@ def test_run_carry_equals_single_steps():
 
 
 def test_engine_step_run_and_lazy_state():
-    eng = sbt.Engine(_topo(), _sweep_params())
+    eng = sbt.Engine(_topo(), _sweep_params(), device="cpu")
     eng.run(3, DT)
     assert eng._state_stale
     p = eng.positions()
@@ -114,7 +114,7 @@ def test_disconnected_pinned_mesh_matches_block_oracle():
     topo = sbt.build_topology(*two_bodies())
     params = _sweep_params(substeps=2, iterations=3)
     pinned = [0, 5, 70]
-    eng = sbt.Engine(topo, params, pinned=pinned)
+    eng = sbt.Engine(topo, params, pinned=pinned, device="cpu")
     step = eng._raw_step
     oracle = XpbdOracle(topo, params, pinned=pinned)
     oracle.w = eng.state.inv_mass.numpy().copy()
@@ -145,12 +145,12 @@ def test_per_constraint_compliance_identity():
     reproduce the scalar path exactly."""
     topo = sbt.meshes.tet_cube(3, 3, 3, size=0.5, center=(0.0, 0.4, 0.0))
     params = _sweep_params(edge_compliance=5e-4, volume_compliance=1e-5)
-    a = sbt.make_step(topo, params)
+    a = sbt.make_step(topo, params, device="cpu")
     b = sbt.make_step(
-        topo, params,
+        topo, params, device="cpu",
         edge_c=np.full(topo.num_edges, 5e-4, np.float32),
         tet_c=np.full(topo.num_tets, 1e-5, np.float32))
-    sa = sb = sbt.init_state(topo)
+    sa = sb = sbt.init_state(topo, device="cpu")
     for _ in range(6):
         sa = a(sa, DT)
         sb = b(sb, DT)
@@ -160,9 +160,9 @@ def test_per_constraint_compliance_identity():
 
 
 def test_no_kernel_launch_on_cpu():
-    before = ksw.launch_counts()
-    sbt.Engine(_topo(), _sweep_params()).run(2, DT).positions()
-    assert ksw.launch_counts() == before
+    before = launch_counts()
+    sbt.Engine(_topo(), _sweep_params(), device="cpu").run(2, DT).positions()
+    assert launch_counts() == before
 
 
 def test_cuda_without_card_raises(monkeypatch):
@@ -180,22 +180,23 @@ def test_unported_features_raise(case):
     topo = _topo()
     kw = {}
     params = _sweep_params()
-    if case == "colliders":
-        kw["colliders"] = object()
+    if case == "colliders":           # colliders on the xpbd sweep backend
+        kw["colliders"] = sbt.Colliders.build(
+            [sbt.Colliders.sphere((0.0, 0.0, 0.0), 0.1)], device="cpu")
     elif case == "bfloat16":
         params = params.replace(xpbd_x_dtype="bfloat16")
     elif case == "gather":
         params = params.replace(xpbd_backend="gather")
     elif case == "auto_small":
         params = params.replace(xpbd_backend="auto")
-    elif case == "jacobi":
-        params = params.replace(dialect="jacobi")
+    elif case == "jacobi":            # ported; its self collision is not
+        params = params.replace(dialect="jacobi", self_collision=True)
     elif case == "mesh":
         kw["mesh"] = object()
     elif case == "self_collision":
         params = params.replace(self_collision=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng = sbt.Engine(topo, params, **kw)
+        eng = sbt.Engine(topo, params, device="cpu", **kw)
         if case == "colliders_rt":
             eng.step(DT, colliders_rt=object())
 
@@ -214,4 +215,5 @@ def test_backend_selection(monkeypatch):
     assert resolve_backend(big, auto, device="cuda") == "sweep"
     assert resolve_backend(small, auto, device="cuda") == "gather"
     with pytest.raises(ValueError):
-        sbt.make_step(_topo(), auto.replace(xpbd_backend="nope"))
+        sbt.make_step(_topo(), auto.replace(xpbd_backend="nope"),
+                      device="cpu")

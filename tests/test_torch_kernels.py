@@ -1,13 +1,15 @@
-"""The CUDA sweep kernels against their plain PyTorch versions on the card,
-and the wrappers' input checks.  Imports no JAX, so it runs on a machine
-with a card and no jax:
+"""The CUDA kernels against their plain PyTorch versions on the card, and
+the wrappers' input checks.  Imports no JAX, so it runs on a machine with a
+card and no jax:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Without a card the card tests skip (the CUDA kernels have no CPU mode).
-Tolerance on the card: positions 1e-5 absolute, lambdas 1e-5 relative to
-the largest |lambda|: the kernel sums a vertex's corrections in CSR order,
-index_add_ in atomic order.
+Tolerances on the card: sweeps and Jacobi passes, positions 1e-5 absolute
+(the kernel sums a vertex's contributions in CSR order, index_add_ in
+atomic order), lambdas 1e-5 relative to the largest |lambda|, Jacobi counts
+equal; collide 1e-6 (the same arithmetic, no FMA on either side); whole
+steps on the card against the CPU 1e-4 over 10 steps.
 """
 
 import numpy as np
@@ -15,6 +17,9 @@ import pytest
 import torch
 
 import softbodysim_torch as sbt
+from softbodysim_torch.kernels import collide as kc
+from softbodysim_torch.kernels import launch_counts
+from softbodysim_torch.kernels import jacobi as kj
 from softbodysim_torch.kernels import sweep as ksw
 from softbodysim_torch.kernels import sweep_plan as tsp
 
@@ -45,7 +50,7 @@ def _plan_and_table(family, scheme, device):
     xw = torch.zeros((nwin * tsp.LANES, 4))
     xw[:V, :3] = torch.from_numpy(
         (topo.vertices + rng.normal(0.0, 0.01, (V, 3))).astype(np.float32))
-    xw[:V, 3] = sbt.init_state(topo).inv_mass
+    xw[:V, 3] = sbt.init_state(topo, device="cpu").inv_mass
     xw[[0, 17], 3] = 0.0
     return dplan, xw.to(device), k
 
@@ -81,10 +86,10 @@ def test_engine_on_card_matches_cpu(cuda_device):
     CPU (plain versions): 10 steps of tet_cube(4), 1e-4."""
     topo = sbt.meshes.tet_cube(4, 4, 4, size=0.5, center=(0.0, 0.6, 0.0))
     params = sbt.SolverParams(substeps=2, iterations=4, xpbd_backend="sweep")
-    before = ksw.launch_counts()
+    before = launch_counts()
     gpu = sbt.Engine(topo, params, device=cuda_device).run(10, DT)
-    after = ksw.launch_counts()
-    cpu = sbt.Engine(topo, params).run(10, DT)
+    after = launch_counts()
+    cpu = sbt.Engine(topo, params, device="cpu").run(10, DT)
     assert after["w_fill"] == before["w_fill"] + 2
     assert after["edge_sweep"] == before["edge_sweep"] + 10 * 2 * 4
     assert after["tet_sweep"] == before["tet_sweep"] + 10 * 2 * 4
@@ -107,7 +112,139 @@ def test_wrappers_validate_inputs():
         ksw.tet_sweep(dplan, xw, lam_p, wtab, 0.0)
     with pytest.raises(ValueError):
         ksw.w_fill(dplan, xw.to("meta"))
-    counts = ksw.launch_counts()
+    counts = launch_counts()
     ksw.edge_sweep(dplan, xw, lam_p, wtab, 0.0)   # plain version on the CPU
-    assert ksw.launch_counts() == counts
+    assert launch_counts() == counts
     assert lam_p.abs().max() > 0
+
+
+# --------------------------------------------------------------------------
+# Jacobi passes and the fused collide stage
+# --------------------------------------------------------------------------
+
+SIZES = {"small": 4, "medium": 12}
+BOX = sbt.Colliders.box((0.0, 0.1, 0.0), (0.6, 0.1, 0.6))
+
+
+def _jacobi_table(n, device, seed=0):
+    topo = sbt.meshes.tet_cube(n, n, n, size=1.0, center=(0.0, 0.8, 0.0))
+    rng = np.random.default_rng(seed)
+    V = topo.num_particles
+    xw = torch.zeros((V, 4))
+    xw[:, :3] = torch.from_numpy(
+        (topo.vertices + rng.normal(0.0, 0.01, (V, 3))).astype(np.float32))
+    xw[:, 3] = sbt.init_state(topo, inv_mass_mode="density",
+                              device="cpu").inv_mass
+    xw[[0, 17], 3] = 0.0
+    return topo, xw.to(device), rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("perk", [False, True])
+@pytest.mark.parametrize("size", list(SIZES))
+@pytest.mark.parametrize("family", ["edges", "tets"])
+def test_jacobi_passes_match_plain_on_card(family, size, perk, cuda_device):
+    topo, xin, rng = _jacobi_table(SIZES[size], cuda_device)
+    cons, rest = ((topo.edges, topo.edge_rest) if family == "edges"
+                  else (topo.tets, topo.tet_rest_vol))
+    table = rng.uniform(0.2, 1.0, len(cons)) if perk else None
+    make, fn, plain = ((kj.edge_pass_plan, kj.jacobi_edge_pass,
+                        kj.jacobi_edge_pass_plain) if family == "edges"
+                       else (kj.tet_pass_plan, kj.jacobi_tet_pass,
+                             kj.jacobi_tet_pass_plain))
+    plan = make(topo.num_particles, cons, rest, table, device=cuda_device)
+    V = topo.num_particles
+    xa, xb = torch.empty_like(xin), torch.empty_like(xin)
+    ca = torch.zeros(V, dtype=torch.int32, device=cuda_device)
+    cb = torch.zeros_like(ca)
+    launches = fn.launches
+    fn(plan, xin, xa, 0.9, 1.4, ca)
+    assert fn.launches == launches + 1
+    plain(plan, xin, xb, 0.9, 1.4, cb)
+    torch.cuda.synchronize()
+    assert not torch.equal(xa, xin)
+    torch.testing.assert_close(xa, xb, rtol=0, atol=1e-5)
+    assert torch.equal(ca, cb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", list(SIZES))
+def test_collide_matches_plain_on_card(size, cuda_device):
+    _, xw, rng = _jacobi_table(SIZES[size], cuda_device)
+    xw[:, :3] = torch.from_numpy(rng.uniform(
+        -0.8, 0.8, (xw.shape[0], 3)).astype(np.float32)).to(cuda_device)
+    q = (0.1826, 0.3651, 0.5477, 0.7303)
+    cols = sbt.Colliders.build([
+        sbt.Colliders.sphere((0.0, 0.2, 0.0), 0.4), None,
+        sbt.Colliders.box((0.5, 0.0, -0.3), (0.3, 0.2, 0.25), rotation=q),
+        sbt.Colliders.capsule((-0.5, 0.1, 0.3), 0.2, 0.3, rotation=q)],
+        capacity=6, device=cuda_device)
+    packed = kc.pack_colliders(cols)
+    ground = kc.make_ground(sbt.SolverParams(
+        ground_point=(0.0, -0.3, 0.0), particle_radius=0.03))
+    xa, xb = xw.clone(), xw.clone()
+    launches = kc.collide.launches
+    kc.collide(xa, packed, ground)
+    assert kc.collide.launches == launches + 1
+    kc.collide_plain(xb, packed, ground)
+    torch.cuda.synchronize()
+    assert (xa - xw).abs().max() > 0.01
+    torch.testing.assert_close(xa, xb, rtol=0, atol=1e-6)
+    pinned = xw[:, 3] == 0
+    assert torch.equal(xa[pinned], xw[pinned])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["pass", "gather"])
+def test_jacobi_engine_on_card_matches_cpu(backend, cuda_device):
+    """The jacobi Engine on the card (kernels) against the same Engine on
+    the CPU (plain versions): 10 steps of tet_cube(4) onto a box, 1e-4."""
+    topo = sbt.meshes.tet_cube(4, 4, 4, size=0.5, center=(0.0, 0.55, 0.0))
+    params = sbt.SolverParams(dialect="jacobi", jacobi_backend=backend)
+
+    def engine(dev):
+        return sbt.Engine(topo, params, device=dev,
+                          colliders=sbt.Colliders.build([BOX], device=dev))
+
+    before = launch_counts()
+    gpu = engine(cuda_device).run(10, DT)
+    after = launch_counts()
+    cpu = engine("cpu").run(10, DT)
+    stages = 10 * params.substeps * params.iterations
+    assert after["collide"] == before["collide"] + stages
+    passes = stages if backend == "pass" else 0
+    for name in ("jacobi_edge_pass", "jacobi_tet_pass"):
+        assert after[name] == before[name] + passes, name
+    # velocities are position differences over sdt = 1/120 s: 1e-3
+    for f, tol in (("x", 1e-4), ("v", 1e-3)):
+        torch.testing.assert_close(getattr(gpu.state, f).cpu(),
+                                   getattr(cpu.state, f), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_jacobi_gather_transform_on_card_uses_collide_kernel(cuda_device):
+    """A body simulated in local space on the gather backend: its collide
+    stage runs the collide kernel on the card on world-space rows, and 10
+    steps match the same Engine on the CPU within 1e-4."""
+    topo = sbt.meshes.tet_cube(4, 4, 4, size=0.5, center=(0.0, 0.55, 0.0))
+    c, s = np.cos(0.3), np.sin(0.3)
+    l2w = np.array([[c, 0, s, 0.05], [0, 1, 0, 0.1], [-s, 0, c, 0.0],
+                    [0, 0, 0, 1]], np.float32)
+    params = sbt.SolverParams(dialect="jacobi")
+
+    def engine(dev):
+        return sbt.Engine(topo, params, device=dev, local_to_world=l2w,
+                          world_to_local=np.linalg.inv(l2w).astype(
+                              np.float32),
+                          colliders=sbt.Colliders.build([BOX], device=dev))
+
+    before = launch_counts()
+    gpu = engine(cuda_device)
+    assert gpu.backend == "gather"
+    gpu.run(10, DT)
+    after = launch_counts()
+    cpu = engine("cpu").run(10, DT)
+    assert after["collide"] == before["collide"] + (
+        10 * params.substeps * params.iterations)
+    torch.testing.assert_close(gpu.state.x.cpu(), cpu.state.x, rtol=0,
+                               atol=1e-4)

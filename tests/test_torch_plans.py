@@ -86,7 +86,7 @@ def test_plans_match_jax(cube, native_mode):
             np.testing.assert_array_equal(getattr(getattr(tt, fam), f),
                                           getattr(getattr(jt, fam), f))
 
-    js, ts = j_init_state(jt), init_state(tt)
+    js, ts = j_init_state(jt), init_state(tt, device="cpu")
     for f in (f.name for f in dataclasses.fields(SimState)):
         np.testing.assert_array_equal(getattr(ts, f).numpy(),
                                       np.asarray(getattr(js, f)), f)
