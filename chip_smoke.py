@@ -18,18 +18,34 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    tunings, a floor box collider, device="cuda") with
    jacobi_backend="auto" -> the pass backend; run(32) then step(); check
    and time three warm 20-step windows.
-5. XPBD reference check: a small Engine against the NumPy
-   block-synchronous oracle (tests/oracle.py), 10 steps.
-6. SampleScene's body (tet_ball(2, 0.3) at (0, 1, 0), density 0.2) on its
-   box through the gather backend, which launches the collide kernel.
-7. Jacobi reference check: tet_cube(3) onto a box and the ground, 10 steps
+5. XPBD legacy path on the same cube: Engine(xpbd, 8 substeps, 1
+   iteration, superblocks=False, a box just under the body) -> the sweep
+   backend on the 128-wide legacy plans (SweepStep, carry API); print the
+   host plan time; run(8) then step(); check the positions (finite, no
+   free particle inside the box) and that both legacy sweep kernels and
+   the collide kernel were launched; time three warm 5-step windows.
+6. XPBD reference checks: small Engines at both block widths against the
+   NumPy block-synchronous oracle (tests/oracle.py) at the plans' own
+   widths, 10 steps.
+7. XPBD colliders on the super-block path: tet_cube(4) onto a box whose
+   pose moves mid-run, on the card against the same step on the CPU.
+8. XPBD coloured Gauss-Seidel on the card: 'auto' (-> 'gather'; 'scatter'
+   resolves to it too) with SampleScene's body on its box (the collide
+   kernel launches, the body rests on the box; then three warm 2-step
+   windows timed), then tet_cube(3) against the oracle's serial sweep in
+   colour order, 10 steps.
+9. SampleScene's body (tet_ball(2, 0.3) at (0, 1, 0), density 0.2) on its
+   box through the jacobi gather backend, which launches the collide
+   kernel.
+10. Jacobi reference check: tet_cube(3) onto a box and the ground, 10 steps
    on the card on the pass and gather backends, against the NumPy
    JacobiOracle (tests/oracle.py).
-8. Every kernel at north-star shapes against its plain PyTorch version
+11. Every kernel at north-star shapes against its plain PyTorch version
    on the card, from one predicted, perturbed state (the Jacobi ones with
    a box collider and the ground); time both.
-9. One profiled window of each main path's warm Engine (torch.profiler:
-   device time per kernel, the device's busy share of the timed window).
+12. One profiled window of each main path's warm Engine, and of the
+   coloured step on SampleScene's body (torch.profiler: device time per
+   kernel, the device's busy share of the timed window).
    It comes last of the timings: once the profiler has run, the host's
    launches are slower.
 
@@ -93,6 +109,12 @@ JACOBI = dict(dialect="jacobi", substeps=2, iterations=6,
               edge_stiffness=0.9, volume_stiffness=0.98, sor_omega=1.4,
               particle_radius=0.02, gravity=(0.0, -10.0, 0.0))
 FLOOR_BOX_TOP = 0.2
+# the legacy path's box: its top this far under the body's lowest point
+LEDGE_GAP = 0.05
+# SampleScene's body on the coloured backends: it lands on its box after
+# ~19 steps; its mesh has 162 edge and 320 tet colours (every tet holds
+# the centre vertex), ~6k colour passes per step of plain tensor ops
+COLOURED_STEPS = 24
 
 
 def card_line() -> str:
@@ -103,11 +125,13 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def events_ms(fn, reps: int) -> float:
+def events_ms(fn, reps: int, warm: bool = True) -> float:
     """Mean stream time of ``fn`` over ``reps`` back-to-back calls (CUDA
-    events), after one warm-up call: the host's launch gaps are included,
-    so this times the plain versions as a caller pays for them."""
-    fn()
+    events), after one warm-up call unless ``warm`` is False: the host's
+    launch gaps are included, so this times the plain versions as a caller
+    pays for them."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -144,14 +168,19 @@ def kernel_ms(fn, reps: int, kernels_per_call: int = 1) -> float:
     """Device time of one call of a kernel wrapper, from the profiler over
     ``reps`` calls (after one warm-up call): the sum over its device
     activities of each one's mean time (each runs once per call; the
-    profiler may drop an event at its start, so a mean, not a total over
-    ``reps``).  The host's launch time between calls is not counted."""
+    profiler may drop events, so a mean, not a total over ``reps``; a
+    window where it saw fewer than half the calls is run again, up to
+    three times).  The host's launch time between calls is not
+    counted."""
     fn()
-    acts, _ = device_activity(lambda: [fn() for _ in range(reps)])
-    if len(acts) < kernels_per_call or any(c < reps // 2
-                                           for c, _ in acts.values()):
-        raise AssertionError(f"the profiler saw {acts} for {reps} calls")
-    return sum(t / c for c, t in acts.values()) / 1e3
+    for _ in range(3):          # the profiler now and then drops a run
+        acts, _ = device_activity(lambda: [fn() for _ in range(reps)])
+        if len(acts) >= kernels_per_call and all(
+                c >= reps // 2 for c, _ in acts.values()):
+            return sum(t / c for c, t in acts.values()) / 1e3
+        print(f"kernel_ms: the profiler saw {acts} for {reps} calls; "
+              "again", flush=True)
+    raise AssertionError(f"the profiler saw {acts} for {reps} calls")
 
 
 def timed_window(eng, steps: int, windows: int = 3) -> float:
@@ -238,23 +267,23 @@ def read_counts() -> dict:
 
 
 # --------------------------------------------------------------------------
-# XPBD (phases 3, 5, 8)
+# XPBD (phases 3, 5-8, 11)
 # --------------------------------------------------------------------------
 
-def compare_sweep_kernels(sbt, ksw, topo, device) -> dict:
-    """Phase 8: each sweep kernel against its plain version, same inputs."""
+def perturbed_table(sbt, topo, device, superblocks: bool) -> tuple:
+    """The north-star SweepStep at one block width and its particle table
+    in a predicted, perturbed state (one substep of free fall plus noise):
+    (step, xw, {family: alpha})."""
     from softbodysim_torch.solver.xpbd_sweep import SweepStep
 
     params = sbt.SolverParams(dialect="xpbd", substeps=8, iterations=1)
     t0 = time.perf_counter()
-    step = SweepStep(topo, params, device=device)
-    print(f"host plans: {time.perf_counter() - t0:.2f} s "
-          f"(edge blocks {step.gpu_plans['edges'].num_blocks}, "
-          f"tet blocks {step.gpu_plans['tets'].num_blocks})", flush=True)
-    ep, tp = step.device_plans["edges"], step.device_plans["tets"]
-    carry = step.pack_state(sbt.init_state(topo, device=device))
-    xw = carry.xw
-    # a predicted, perturbed state: one substep of free fall plus noise
+    step = SweepStep(topo, params, device=device, superblocks=superblocks)
+    print(f"host plans ({'super-blocks' if superblocks else 'legacy'}): "
+          f"{time.perf_counter() - t0:.2f} s (edge blocks "
+          f"{step.gpu_plans['edges'].num_blocks}, tet blocks "
+          f"{step.gpu_plans['tets'].num_blocks})", flush=True)
+    xw = step.pack_state(sbt.init_state(topo, device=device)).xw
     sdt = np.float32(DT) / np.float32(8)
     rng = np.random.default_rng(SEED)
     noise = rng.normal(0.0, 1e-3, (xw.shape[0], 3)).astype(np.float32)
@@ -264,6 +293,14 @@ def compare_sweep_kernels(sbt, ksw, topo, device) -> dict:
     alphas = {"edges": float(np.float32(params.edge_compliance)
                              / (sdt * sdt)),
               "tets": 0.0}
+    return step, xw, alphas
+
+
+def compare_sweep_kernels(sbt, ksw, topo, device) -> dict:
+    """Phase 11: each sweep kernel against its plain version, same
+    inputs."""
+    step, xw, alphas = perturbed_table(sbt, topo, device, superblocks=True)
+    ep, tp = step.device_plans["edges"], step.device_plans["tets"]
     ks = step.block_scheme["local_iters"]
     res = {}
 
@@ -287,46 +324,83 @@ def compare_sweep_kernels(sbt, ksw, topo, device) -> dict:
     w_e = ksw.w_fill_plain(ep, xw)
     w_t = ksw.w_fill_plain(tp, xw)
 
-    # per live lane and visit: ~26 flops (edge) / ~140 (tet); per CSR
-    # entry and visit: 6 (3 products, 3 sums); xw and lambda read and
-    # written once, every plan table read once
+    # per live lane and visit: ~26 flops (edge) / ~140 (tet)
     for name, plan, wtab, k, fn, plain, lane_ops in (
             ("edge_sweep", ep, w_e, ks[0], ksw.edge_sweep,
              ksw.edge_sweep_plain, 26),
             ("tet_sweep", tp, w_t, ks[1], ksw.tet_sweep,
              ksw.tet_sweep_plain, 140)):
-        fam = "edges" if plan is ep else "tets"
-        lam0 = torch.zeros(plan.num_blocks * 1024, device=device)
-        xa, la = xw.clone(), lam0.clone()
-        xb, lb = xw.clone(), lam0.clone()
-        fn(plan, xa, la, wtab, alphas[fam], k)
-        plain(plan, xb, lb, wtab, alphas[fam], k)
-        torch.cuda.synchronize()
-        if not (torch.isfinite(xa).all() and torch.isfinite(la).all()):
-            raise AssertionError(f"{name}: non-finite kernel output")
-        ex = (xa - xb).abs().max().item()
-        el = (la - lb).abs().max().item()
-        lmax = lb.abs().max().item()
-        moved = (xa - xw).abs().max().item()
-        print(f"{name}: max|x_kernel - x_plain| = {ex:.3e} m (tol {X_TOL}),"
-              f" max|lam diff| = {el:.3e} (max|lam| {lmax:.3e}, rel tol "
-              f"{LAM_REL_TOL}), max move {moved:.3e} m", flush=True)
-        if not ex <= X_TOL:
-            raise AssertionError(f"{name}: positions disagree ({ex})")
-        if not el <= LAM_REL_TOL * lmax:
-            raise AssertionError(f"{name}: lambdas disagree ({el})")
-        if not moved > 0.0:
-            raise AssertionError(f"{name}: the sweep moved nothing")
-        ms = kernel_ms(lambda: fn(plan, xa, la, wtab, alphas[fam], k), 10)
-        plain_ms = events_ms(
-            lambda: plain(plan, xb, lb, wtab, alphas[fam], k), 2)
-        live = int((plan.verts[:, 0] >= 0).sum().item())
-        nb = (2 * nbytes(xw, lam0)
-              + nbytes(plan.verts, plan.rest, plan.scale, plan.atab, wtab,
-                       plan.blk_vptr, plan.cvert, plan.cptr, plan.centry))
-        ops = k * (lane_ops * live + 6 * plan.centry.numel())
-        res[name] = result(max(ex, el), ms, plain_ms, nb, ops)
+        a = alphas["edges" if plan is ep else "tets"]
+        res[name] = compare_sweep(
+            name, plan, xw,
+            lambda x, l: fn(plan, x, l, wtab, a, k),
+            lambda x, l: plain(plan, x, l, wtab, a, k), (wtab,), lane_ops, k)
     return res
+
+
+def compare_legacy_kernels(sbt, ksw, topo, device) -> dict:
+    """Phase 11: each legacy 128-wide sweep kernel against its plain
+    version (the super-block plain version on a 128-wide plan) at
+    north-star shapes, same inputs."""
+    step, xw, alphas = perturbed_table(sbt, topo, device, superblocks=False)
+    res = {}
+    # per live lane ~27 flops (edge) / ~150 (tet); the plain versions
+    # take seconds here, so each is timed on its one checked call
+    for name, fam, fn, plain, lane_ops in (
+            ("legacy_edge_sweep", "edges", ksw.legacy_edge_sweep,
+             ksw.edge_sweep_plain, 27),
+            ("legacy_tet_sweep", "tets", ksw.legacy_tet_sweep,
+             ksw.tet_sweep_plain, 150)):
+        plan, a = step.device_plans[fam], alphas[fam]
+        res[name] = compare_sweep(
+            name, plan, xw, lambda x, l: fn(plan, x, l, a),
+            lambda x, l: plain(plan, x, l, None, a), (), lane_ops,
+            plain_reps=0)
+    return res
+
+
+def compare_sweep(name, plan, xw, kernel, plain, tables, lane_ops: int,
+                  k: int = 1, plain_reps: int = 2) -> dict:
+    """One sweep kernel against its plain version from the same table and
+    zero lambdas; ``kernel`` / ``plain``: f(x, lam), in place.  Checks the
+    positions (X_TOL) and lambdas (LAM_REL_TOL), times both (the plain
+    version over ``plain_reps`` calls after a warm-up, or on its checked
+    call when 0) and returns the kernel's result row.  The bound: xw and
+    lambda read and written once, the plan and ``tables`` read once; per
+    live lane ``lane_ops`` and per CSR entry 6 flops, per visit."""
+    lam0 = torch.zeros(plan.num_blocks * plan.width, device=xw.device)
+    xa, la = xw.clone(), lam0.clone()
+    xb, lb = xw.clone(), lam0.clone()
+    kernel(xa, la)
+    if plain_reps:
+        plain(xb, lb)
+    else:
+        plain_ms = events_ms(lambda: plain(xb, lb), 1, warm=False)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(xa).all() and torch.isfinite(la).all()):
+        raise AssertionError(f"{name}: non-finite kernel output")
+    ex = (xa - xb).abs().max().item()
+    el = (la - lb).abs().max().item()
+    lmax = lb.abs().max().item()
+    moved = (xa - xw).abs().max().item()
+    print(f"{name}: max|x_kernel - x_plain| = {ex:.3e} m (tol {X_TOL}),"
+          f" max|lam diff| = {el:.3e} (max|lam| {lmax:.3e}, rel tol "
+          f"{LAM_REL_TOL}), max move {moved:.3e} m", flush=True)
+    if not ex <= X_TOL:
+        raise AssertionError(f"{name}: positions disagree ({ex})")
+    if not el <= LAM_REL_TOL * lmax:
+        raise AssertionError(f"{name}: lambdas disagree ({el})")
+    if not moved > 0.0:
+        raise AssertionError(f"{name}: the sweep moved nothing")
+    ms = kernel_ms(lambda: kernel(xa, la), 10)
+    if plain_reps:
+        plain_ms = events_ms(lambda: plain(xb, lb), plain_reps)
+    live = int((plan.verts[:, 0] >= 0).sum().item())
+    nb = (2 * nbytes(xw, lam0)
+          + nbytes(plan.verts, plan.rest, plan.scale, plan.atab, *tables,
+                   plan.blk_vptr, plan.cvert, plan.cptr, plan.centry))
+    ops = k * (lane_ops * live + 6 * plan.centry.numel())
+    return result(max(ex, el), ms, plain_ms, nb, ops)
 
 
 def xpbd_main_path(sbt, topo, device) -> tuple:
@@ -364,19 +438,21 @@ def xpbd_main_path(sbt, topo, device) -> tuple:
     return counts, timed_window(eng, 20), eng
 
 
-def xpbd_reference_check(sbt, device) -> float:
-    """Phase 5: small scene on the card vs the NumPy block oracle."""
+def xpbd_reference_check(sbt, device, superblocks: bool) -> float:
+    """Phase 6: small scene on the card vs the NumPy block oracle, which
+    replays the plans at their own block width (1024 or 128)."""
     from oracle import XpbdOracle
+    from softbodysim_torch.kernels.sweep_plan import block_width
 
     topo = sbt.meshes.tet_cube(4, 4, 4, size=0.5, center=(0.0, 0.6, 0.0))
     params = sbt.SolverParams(dialect="xpbd", substeps=2, iterations=4,
                               xpbd_backend="sweep")
-    eng = sbt.Engine(topo, params, device=device)
+    eng = sbt.Engine(topo, params, superblocks=superblocks, device=device)
     step = eng._raw_step
 
     def blocks(plan):
-        rows = plan.perm.reshape(-1, 1024)
-        scl = plan.scale.reshape(-1, 1024)
+        rows = plan.perm.reshape(-1, block_width(plan))
+        scl = plan.scale.reshape(-1, block_width(plan))
         return [(r[r >= 0], s[r >= 0]) for r, s in zip(rows, scl)
                 if (r >= 0).any()]
 
@@ -392,15 +468,169 @@ def xpbd_reference_check(sbt, device) -> float:
     err = max(np.abs(s.x.cpu().numpy() - oracle.x).max(),
               np.abs(s.edge_lambda.cpu().numpy() - oracle.edge_lambda).max(),
               np.abs(s.tet_lambda.cpu().numpy() - oracle.tet_lambda).max())
-    print(f"xpbd reference check (tet_cube(4), 10 steps vs block oracle): "
-          f"max abs err {err:.3e} (tol {ORACLE_TOL})", flush=True)
+    label = "super-blocks" if superblocks else "legacy 128-wide blocks"
+    print(f"xpbd reference check ({label}, tet_cube(4), 10 steps vs block "
+          f"oracle): max abs err {err:.3e} (tol {ORACLE_TOL})", flush=True)
     if not err <= ORACLE_TOL:
         raise AssertionError(f"port disagrees with the oracle ({err})")
     return err
 
 
+def legacy_main_path(sbt, topo, device) -> tuple:
+    """Phase 5: the xpbd Engine on the legacy 128-wide plans with a box
+    just under the body; (launch counts, ms/step of a timed window, the
+    warm Engine)."""
+    from softbodysim_torch.solver import xpbd_sweep as txs
+
+    t0 = time.perf_counter()
+    _, _, _, ep, tp = txs.cached_plans(topo, superblocks=False)
+    print(f"legacy host plans: {time.perf_counter() - t0:.2f} s (edge "
+          f"blocks {ep.num_blocks}, dmax {ep.dmax}; tet blocks "
+          f"{tp.num_blocks}, dmax {tp.dmax}; fill "
+          f"{topo.num_edges / ep.capacity:.3f} / "
+          f"{topo.num_tets / tp.capacity:.3f})", flush=True)
+    params = sbt.SolverParams(dialect="xpbd", substeps=8, iterations=1)
+    top = float(topo.vertices[:, 1].min()) - LEDGE_GAP
+    box = sbt.Colliders.build([sbt.Colliders.box(
+        (0.0, top - 0.1, 0.0), (1.5, 0.1, 1.5))], device=device)
+    reset_counts()
+    t0 = time.perf_counter()
+    eng = sbt.Engine(topo, params, colliders=box, superblocks=False,
+                     device=device)
+    step = eng._raw_step
+    if eng.backend != "sweep" or step.superblocks:
+        raise AssertionError(f"backend {eng.backend!r}, expected the "
+                             "legacy sweep backend")
+    eng.run(8, DT)
+    eng.step(DT)
+    eng.block()
+    counts = read_counts()
+    pos = eng.positions()
+    print(f"legacy path: 9 steps in {time.perf_counter() - t0:.2f} s "
+          f"(incl. set-up), launches {counts}", flush=True)
+    if pos.shape != (topo.num_particles, 3) or not np.isfinite(pos).all():
+        raise AssertionError("non-finite or misshapen positions")
+    free = eng.state.inv_mass.cpu().numpy() != 0
+    min_y = float(pos[free, 1].min())
+    print(f"positions finite, free min y {min_y:.6f} (box top {top:.6f})",
+          flush=True)
+    if not top - 1e-3 <= min_y <= top + 1e-2:
+        raise AssertionError(f"the body is not resting on the box "
+                             f"({min_y} against {top})")
+    for name in ("legacy_edge_sweep", "legacy_tet_sweep", "collide"):
+        if not counts[name] > 0:
+            raise AssertionError(f"{name} was not launched: {counts}")
+
+    return counts, timed_window(eng, 5), eng
+
+
+def xpbd_collider_check(sbt, device) -> float:
+    """Phase 7: tet_cube(4) onto a box whose pose rises after step 5, on
+    the super-block sweep path on the card against the same step on the
+    CPU (its plain versions, which the CPU tests hold against JAX)."""
+    from softbodysim_torch.solver.xpbd_sweep import SweepStep
+
+    topo = sbt.meshes.tet_cube(4, 4, 4, size=0.5, center=(0.0, 0.45, 0.0))
+    params = sbt.SolverParams(dialect="xpbd", substeps=2, iterations=4,
+                              xpbd_backend="sweep")
+
+    def box(y, dev):
+        return sbt.Colliders.build([sbt.Colliders.box(
+            (0.0, y, 0.0), (0.6, 0.1, 0.6))], device=dev)
+
+    devs = (device, torch.device("cpu"))
+    steps = {d: SweepStep(topo, params, box(0.1, d), device=d) for d in devs}
+    state = sbt.init_state(topo, device="cpu")
+    carries = {d: steps[d].pack_state(state) for d in devs}
+    reset_counts()
+    for y in [0.1] * 5 + [0.13] * 5:
+        for d in devs:
+            steps[d].run_carry(carries[d], DT, 1, colliders_rt=box(y, d))
+    counts = read_counts()
+    out = {d: steps[d].unpack_state(carries[d], state) for d in devs}
+    err = max((getattr(out[device], f).cpu() - getattr(out[devs[1]], f))
+              .abs().max().item() for f in ("x", "edge_lambda", "tet_lambda"))
+    min_y = out[device].x[:, 1].min().item()
+    print(f"xpbd colliders, super-blocks (tet_cube(4), box moved mid-run, "
+          f"10 steps, card vs CPU): max abs err {err:.3e} (tol "
+          f"{ORACLE_TOL}), min y {min_y:.6f}, collide launches "
+          f"{counts['collide']}", flush=True)
+    if not err <= ORACLE_TOL:
+        raise AssertionError(f"card and CPU disagree ({err})")
+    if not counts["collide"] == 10 * params.substeps * params.iterations:
+        raise AssertionError(f"collide launches {counts}")
+    if not min_y >= 0.23 - 1e-3:
+        raise AssertionError(f"a particle is inside the moved box ({min_y})")
+    return err
+
+
+def coloured_checks(sbt, device) -> tuple:
+    """Phase 8: the coloured Gauss-Seidel backend on the card; (ms/step of
+    a timed window, the warm Engine on SampleScene's body)."""
+    from oracle import XpbdOracle
+    from softbodysim_torch.solver.select import resolve_backend
+
+    ball = sbt.meshes.tet_ball(2, 0.3)
+    topo = sbt.build_topology(
+        ball.vertices - ball.vertices.mean(0)
+        + np.array([0.0, 1.0, 0.0], np.float32), ball.tets)
+    cols = sbt.Colliders.build(
+        [sbt.Colliders.box((0.0, 0.1, 0.0), (0.6, 0.1, 0.6))], device=device)
+    params = sbt.SolverParams(dialect="xpbd")
+    alias = resolve_backend(topo, params.replace(xpbd_backend="scatter"),
+                            device=device)
+    if alias != "gather":
+        raise AssertionError(f"'scatter' resolved to {alias!r}")
+    reset_counts()
+    t0 = time.perf_counter()
+    eng = sbt.Engine(topo, params, colliders=cols, device=device)
+    if eng.backend != "gather":
+        raise AssertionError(f"backend {eng.backend!r}, expected 'gather'")
+    eng.run(COLOURED_STEPS, DT)
+    eng.block()
+    counts = read_counts()
+    pos = eng.positions()
+    min_y = float(pos[:, 1].min())
+    print(f"xpbd SampleScene body (V={topo.num_particles}, "
+          f"T={topo.num_tets}, {len(topo.edge_colors.idx)} edge and "
+          f"{len(topo.tet_colors.idx)} tet colours): backend="
+          f"{eng.backend}, {COLOURED_STEPS} steps in "
+          f"{time.perf_counter() - t0:.2f} s (one graph capture included), "
+          f"min y {min_y:.6f} (box top {FLOOR_BOX_TOP}), launches {counts}",
+          flush=True)
+    if not np.isfinite(pos).all():
+        raise AssertionError("non-finite positions")
+    if not FLOOR_BOX_TOP - 1e-3 <= min_y <= FLOOR_BOX_TOP + 1e-2:
+        raise AssertionError(f"the ball is not resting on its box "
+                             f"({min_y})")
+    if not counts["collide"] > 0:
+        raise AssertionError(f"collide was not launched: {counts}")
+    c_ms = timed_window(eng, 2)
+
+    topo = sbt.meshes.tet_cube(3, 3, 3, size=0.5, center=(0.0, 0.6, 0.0))
+    params = sbt.SolverParams(dialect="xpbd", substeps=2, iterations=4,
+                              xpbd_backend="gather")
+    ref = sbt.Engine(topo, params, device=device)
+    oracle = XpbdOracle(topo, params)
+    oracle.w = ref.state.inv_mass.cpu().numpy().copy()
+    for _ in range(10):
+        ref.step(DT)
+        oracle.step(DT, edge_order=topo.edge_colors.order,
+                    tet_order=topo.tet_colors.order)
+    s = ref.state
+    err = max(np.abs(s.x.cpu().numpy() - oracle.x).max(),
+              np.abs(s.edge_lambda.cpu().numpy() - oracle.edge_lambda).max(),
+              np.abs(s.tet_lambda.cpu().numpy() - oracle.tet_lambda).max())
+    print(f"xpbd reference check (gather, tet_cube(3), 10 steps vs the "
+          f"serial oracle in colour order): max abs err {err:.3e} (tol "
+          f"{ORACLE_TOL})", flush=True)
+    if not err <= ORACLE_TOL:
+        raise AssertionError(f"gather disagrees with the oracle ({err})")
+    return c_ms, eng
+
+
 # --------------------------------------------------------------------------
-# Jacobi (phases 4, 6-8)
+# Jacobi (phases 4, 9-11)
 # --------------------------------------------------------------------------
 
 def floor_box(sbt, device):
@@ -409,7 +639,7 @@ def floor_box(sbt, device):
 
 
 def compare_jacobi_kernels(sbt, topo, device) -> dict:
-    """Phase 8: the Jacobi passes and the collide stage against their plain
+    """Phase 11: the Jacobi passes and the collide stage against their plain
     versions, from one predicted, perturbed state."""
     from softbodysim_torch.kernels import collide as kc
     from softbodysim_torch.kernels import jacobi as kj
@@ -538,7 +768,8 @@ def jacobi_main_path(sbt, topo, device) -> tuple:
 
 
 def sample_scene(sbt, device) -> dict:
-    """Phase 6: SampleScene's body and box through the gather backend."""
+    """Phase 9: SampleScene's body and box through the jacobi gather
+    backend."""
     ball = sbt.meshes.tet_ball(2, 0.3)
     topo = sbt.build_topology(
         ball.vertices - ball.vertices.mean(0)
@@ -570,7 +801,8 @@ def sample_scene(sbt, device) -> dict:
 
 
 def jacobi_reference_check(sbt, device) -> float:
-    """Phase 7: tet_cube(3) on the card (pass and gather) vs JacobiOracle."""
+    """Phase 10: tet_cube(3) on the card (pass and gather) vs
+    JacobiOracle."""
     from oracle import JacobiOracle
 
     topo = sbt.meshes.tet_cube(3, 3, 3, size=0.5, center=(0.0, 0.55, 0.0))
@@ -635,18 +867,35 @@ def main() -> int:
     print(f"jacobi tet_cube(47) (2 substeps, 6 iterations, floor box): "
           f"{j_ms:.3f} ms/step, {1e3 / j_ms:.2f} steps/s on {card}",
           flush=True)
-    xpbd_reference_check(sbt, device)
+    l_counts, l_ms, l_eng = legacy_main_path(sbt, topo, device)
+    print(f"xpbd legacy 128-wide tet_cube(47) (8 substeps, 1 iteration, "
+          f"box): {l_ms:.3f} ms/step, {1e3 / l_ms:.2f} steps/s on {card}",
+          flush=True)
+    xpbd_reference_check(sbt, device, superblocks=True)
+    xpbd_reference_check(sbt, device, superblocks=False)
+    xpbd_collider_check(sbt, device)
+    c_ms, c_eng = coloured_checks(sbt, device)
+    print(f"xpbd coloured SampleScene body (2 substeps, 6 iterations, box):"
+          f" {c_ms:.3f} ms/step on {card}", flush=True)
     sample_scene(sbt, device)
     jacobi_reference_check(sbt, device)
 
     kres = compare_sweep_kernels(sbt, ksw, topo, device)
-    for name in ("w_fill", "edge_sweep", "tet_sweep"):
+    kres.update(compare_legacy_kernels(sbt, ksw, topo, device))
+    for name in ("w_fill", "edge_sweep", "tet_sweep", "legacy_edge_sweep",
+                 "legacy_tet_sweep"):
         report(name, kres[name])
     kres.update(compare_jacobi_kernels(sbt, topo, device))
     for label, eng, steps, ms in (("xpbd north star", x_eng, 4, x_ms),
-                                  ("jacobi tet_cube(47)", j_eng, 20, j_ms)):
-        print(json.dumps({"profile": label,
-                          **profile_window(eng, steps, ms)}), flush=True)
+                                  ("jacobi tet_cube(47)", j_eng, 20, j_ms),
+                                  ("xpbd legacy 128-wide", l_eng, 2, l_ms),
+                                  ("xpbd coloured SampleScene", c_eng, 1,
+                                   c_ms)):
+        t0 = time.perf_counter()
+        prof = profile_window(eng, steps, ms)
+        print(json.dumps({"profile": label, **prof}), flush=True)
+        print(f"profile of {label}: {time.perf_counter() - t0:.2f} s",
+              flush=True)
 
     src = "softbodysim_torch/kernels/csrc/"
     rows = (
@@ -661,7 +910,11 @@ def main() -> int:
         ("jacobi_tet_pass", "jacobi.cu",
          "softbodysim_tpu/kernels/jacobi.py:158", j_counts),
         ("collide", "collide.cu", "softbodysim_tpu/kernels/collide.py:136",
-         j_counts))
+         j_counts),
+        ("legacy_edge_sweep", "sweep.cu",
+         "softbodysim_tpu/kernels/sweep.py:825", l_counts),
+        ("legacy_tet_sweep", "sweep.cu",
+         "softbodysim_tpu/kernels/sweep.py:894", l_counts))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + cu,
          "replaces": replaces, "launches": counts[name], **kres[name]}

@@ -3,8 +3,10 @@
 Two solver dialects on one scene, on hand-written CUDA kernels for an
 NVIDIA Hopper GPU (kernels/csrc/*.cu), with the API of the JAX package:
 the XPBD dialect on the block-synchronous sweep kernels (the JAX package's
-host plans and block order), and the Jacobi dialect (the in-engine
-contract) on the Jacobi pass kernels and the fused collide kernel::
+host plans and block order, super-blocks or the legacy 128-wide blocks) or,
+for small scenes, coloured Gauss-Seidel, and the Jacobi dialect (the
+in-engine contract) on the Jacobi pass kernels; colliders on both, through
+the fused collide kernel::
 
     import softbodysim_torch as sbt
 

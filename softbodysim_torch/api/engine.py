@@ -8,10 +8,10 @@ backends) keep their internal layout on the device between calls: the
 public state is materialized lazily on access, so the layout / lambda
 boundary is paid once per state transfer, not once per step.
 
-Colliders (jacobi dialect) are runtime poses: the engine's current set goes
-to every step, so ``update_colliders`` moves them without rebuilding the
-step (the reference rebuilds its collider snapshot every step,
-SoftBodyManager.cs:239-261).
+Colliders (both dialects, every backend) are runtime poses: the engine's
+current set goes to every step, so ``update_colliders`` moves them without
+rebuilding the step (the reference rebuilds its collider snapshot every
+step, SoftBodyManager.cs:239-261).
 """
 
 from __future__ import annotations
@@ -43,10 +43,12 @@ class Engine:
                  pin_top_layer: bool = False, mesh=None, device=None,
                  **solver_kw):
         """``solver_kw``: per-constraint tables (``edge_c`` / ``tet_c``
-        compliance for xpbd, ``edge_k`` / ``tet_k`` stiffness for jacobi,
-        public order) and, for jacobi, ``local_to_world`` /
-        ``world_to_local``.  ``colliders`` work on the jacobi dialect;
-        ``mesh`` is not ported yet and raises."""
+        compliance for the xpbd sweep backend, ``edge_k`` / ``tet_k``
+        stiffness for jacobi, public order); for xpbd ``superblocks``
+        (False: the legacy 128-wide sweep kernels); for jacobi
+        ``local_to_world`` / ``world_to_local``.  ``colliders`` work on
+        both dialects and every backend; ``mesh`` is not ported yet and
+        raises."""
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device meshes are not ported yet (ROADMAP.md queue 1 "
@@ -95,8 +97,9 @@ class Engine:
 
     def step(self, dt: float = 1.0 / 60.0, **overrides) -> "Engine":
         """One step; overrides go to the solver step (per-step compliance
-        or stiffness scalars and omega; jacobi: ``colliders_rt`` and body
-        transforms for this step)."""
+        or stiffness scalars, omega, ``colliders_rt``; the xpbd coloured
+        backend also takes ``friction`` and ``gravity_override``; jacobi
+        body transforms for this step)."""
         overrides = self._with_colliders(overrides)
         rc = getattr(self._raw_step, "run_carry", None)
         if rc is not None:
@@ -134,8 +137,8 @@ class Engine:
 
     @property
     def backend(self) -> Optional[str]:
-        """The concrete solver backend the step resolved to ("sweep",
-        "pass", "gather", "segment")."""
+        """The concrete solver backend the step resolved to ("sweep" or
+        "gather" for xpbd; "pass", "gather", "segment" for jacobi)."""
         return getattr(self._raw_step, "backend", None)
 
     def positions_device(self) -> torch.Tensor:

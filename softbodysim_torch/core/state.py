@@ -63,11 +63,13 @@ class SolverParams:
 
     The port runs the 'xpbd' dialect on the block-synchronous sweep backend
     (``xpbd_backend`` 'sweep', or its alias 'pallas'; 'auto' picks it on a
-    CUDA device at >= 100k constraints) and the 'jacobi' dialect on the
-    'segment', 'gather' and 'pass' backends (``jacobi_backend``; 'pallas'
-    is an alias of 'pass', which 'auto' picks on a CUDA device at >= 100k
-    constraints).  Knobs of slices not yet ported are accepted and raise
-    NotImplementedError where a step would use them."""
+    CUDA device at >= 100k constraints) and the coloured Gauss-Seidel
+    backend 'gather' (what 'auto' picks otherwise; 'scatter' is its
+    alias), and the 'jacobi' dialect on the 'segment', 'gather' and 'pass'
+    backends (``jacobi_backend``; 'pallas' is an alias of 'pass', which
+    'auto' picks on a CUDA device at >= 100k constraints).  Knobs of
+    slices not yet ported are accepted and raise NotImplementedError where
+    a step would use them."""
 
     substeps: int = 2
     iterations: int = 6

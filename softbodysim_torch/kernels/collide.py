@@ -39,6 +39,14 @@ class Ground(NamedTuple):
     radius: float
 
 
+# The xpbd dialect's collider stage: world-space colliders at particle
+# radius exactly 0 and no ground plane (the xpbd ground is the y clamp), as
+# the JAX xpbd steps call collide_particles(p, 0.0, ...)
+# (softbodysim_tpu/solver/xpbd_pallas.py:652-658, xpbd.py:415-419).
+XPBD_GROUND = Ground(enabled=False, point=(0.0, 0.0, 0.0),
+                     normal=(0.0, 1.0, 0.0), radius=0.0)
+
+
 def make_ground(params) -> Ground:
     """The jacobi dialect's ground (solver/jacobi.py:283-288 of the JAX
     package): a normal shorter than 1e-6 becomes (0, 1, 0)."""
@@ -52,6 +60,22 @@ def make_ground(params) -> Ground:
                                                  np.float32)),
         normal=tuple(float(v) for v in gn.astype(np.float32)),
         radius=f32(max(1e-6, params.particle_radius)))
+
+
+def runtime_colliders(template: Optional[Colliders],
+                      colliders_rt: Optional[Colliders], device):
+    """The collider set of this step, for every dialect: the runtime poses
+    when given (same count as the make-time template), else the
+    template."""
+    if colliders_rt is None:
+        return template
+    if template is None:
+        raise ValueError("runtime colliders require a make-time collider "
+                         "template")
+    if colliders_rt.count != template.count:
+        raise ValueError(f"runtime colliders: {colliders_rt.count} slots, "
+                         f"the template has {template.count}")
+    return colliders_rt.to(device)
 
 
 def pack_colliders(colliders: Optional[Colliders], device=None):

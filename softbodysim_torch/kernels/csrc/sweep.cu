@@ -1,20 +1,35 @@
 // Block-synchronous XPBD constraint sweeps for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of softbodysim_tpu/kernels/sweep.py:
-//   w_fill_kernel     <- _w_fill_kernel      (sweep.py:1118)
-//   edge_sweep_kernel <- _edge_kernel_super  (sweep.py:1169, with
-//                        _gather_xyz :1083 and _scatter_super :1151)
-//   tet_sweep_kernel  <- _tet_kernel_super   (sweep.py:1267)
+//   w_fill_kernel                      <- _w_fill_kernel     (sweep.py:1118)
+//   edge_sweep_kernel<1024, false>     <- _edge_kernel_super (sweep.py:1169,
+//                                         with _gather_xyz :1083 and
+//                                         _scatter_super :1151)
+//   tet_sweep_kernel<1024, false>      <- _tet_kernel_super  (sweep.py:1267)
+//   edge_sweep_kernel<128, true>       <- _edge_kernel (sweep.py:825, with
+//                                         _gather_role :805 and
+//                                         _scatter_slot :818)
+//   tet_sweep_kernel<128, true>        <- _tet_kernel  (sweep.py:894)
 //
 // Semantics (the JAX package's, replayed by tests/oracle.py::step_blocks):
-// constraints are packed into super-blocks of 1024; inside a block every
+// constraints are packed into blocks -- super-blocks of 1024, or the legacy
+// SweepPlan blocks of 128 (superblocks=False); inside a block every
 // constraint reads the positions from before the block and the corrections
 // of all its constraints are summed (Jacobi); blocks run one after another
 // in plan order (Gauss-Seidel).
 //
+// The legacy instantiations (kLegacy) take only what the JAX legacy kernels
+// take: the scale scheme (dlambda times the lane's 1/m, m the largest
+// within-block multiplicity of its vertices), one visit per block, and the
+// inverse masses read from the table's w column (no streamed w table).
+// They round as those kernels do: the edge normal is d / |d| (sweep.py:856)
+// and the volume dot(cross(pb - pa, pc - pa), pd - pa) times the f32 sixth
+// (:924); the super-block kernels multiply by 1/|d| and take the volume as
+// g_d . (pd - pa) with g_d already scaled.
+//
 // Design.  The particle table xw is (Vpad, 4) f32 -- x, y, z, inverse mass
 // -- so a corner gather is one 16-byte load; at the north-star size it is
-// 1.7 MB and stays in L2.  One persistent CTA of 1024 threads walks the
+// 1.7 MB and stays in L2.  One persistent CTA of kBlock threads walks the
 // family's blocks in order, one thread per constraint lane:
 //   1. gather the corners, compute dlambda, update lambda (kept in a
 //      register across the K in-block revisits), write the per-role
@@ -22,15 +37,16 @@
 //   2. __syncthreads() -- no thread may write xw before every thread has
 //      gathered (pre-block reads);
 //   3. walk the block's vertex CSR (built on the host, each vertex once,
-//      its (lane, role) entries in a fixed order) and add each vertex's
+//      its (lane, role) entries in ascending order) and add each vertex's
 //      summed correction into xw -- no atomics, the same sum order every
 //      run;
 //   4. __syncthreads(), then the next block.
 // What bounds it: latency, not bytes or FLOPs.  One SM runs the whole sweep
 // and each block is a chain of dependent L2 loads (plan -> xw gather, CSR ->
-// shared -> xw update).  This is deliberate for the exact block order; a
-// block-colour schedule that runs independent blocks on many SMs is later
-// work.
+// shared -> xw update); at the north star an iteration is 1,328 such block
+// steps on super-blocks and about 12k (5,560 edge, 6,776 tet) on the legacy
+// blocks.  This is deliberate for the exact block order; a block-colour
+// schedule that runs independent blocks on many SMs is later work.
 //
 // Build with --fmad=false: the products and sums are rounded as in the
 // plain PyTorch versions and the JAX kernels (no contraction into FMA).
@@ -40,9 +56,13 @@
 
 namespace {
 
-constexpr int kBlock = 1024;     // constraints per super-block == CTA size
-// per-role corrections of one tet block, dynamic (opt-in) shared memory
-constexpr int kTetSmem = 4 * 3 * kBlock * (int)sizeof(float);     // 48 KB
+constexpr int kSuper = 1024;     // constraints per super-block == CTA size
+constexpr int kLegacyWidth = 128;  // constraints per legacy block == CTA size
+
+// per-role corrections of one tet block, dynamic shared memory (opt-in
+// above 48 KB)
+template <int kBlock>
+constexpr int tet_smem() { return 4 * 3 * kBlock * (int)sizeof(float); }
 
 // One thread per output value.  Edges (arity 2): wsum[p] = c0*w0 + c1*w1.
 // Tets (arity 4): w[p, r] = c_r * w_r.  Pad lanes (vertex -1) get w = 0.
@@ -68,10 +88,12 @@ __global__ void w_fill_kernel(const int* __restrict__ verts,
 }
 
 // XPBD distance sweep.  Per live lane: C = |d| - rest,
-// dlambda = (-C - a*lambda) / (wsum + a) (wsum streamed from w_fill, guards
-// wsum != 0 and |d| >= 1e-12), times the lane's scale; lambda += dlambda.
-// Corrections: +n*dlambda*w to role 0, -n*dlambda*w to role 1, w the plain
-// inverse mass of the target vertex.
+// dlambda = (-C - a*lambda) / (wsum + a) (wsum streamed from w_fill, or
+// w0 + w1 off the table when kLegacy; guards wsum != 0 and |d| >= 1e-12),
+// times the lane's scale; lambda += dlambda.  Corrections: +n*dlambda*w to
+// role 0, -n*dlambda*w to role 1, w the plain inverse mass of the target
+// vertex.
+template <int kBlock, bool kLegacy>
 __global__ void __launch_bounds__(kBlock, 1)
 edge_sweep_kernel(float4* xw, float* lam, const int2* __restrict__ verts,
                   const float* __restrict__ rest,
@@ -92,7 +114,7 @@ edge_sweep_kernel(float4* xw, float* lam, const int2* __restrict__ verts,
     float l = 0.f, ws = 0.f, r = 0.f, sc = 0.f, al = alpha;
     if (live) {
       l = lam[p];
-      ws = wsum[p];
+      if (!kLegacy) ws = wsum[p];
       r = rest[p];
       sc = scale[p];
       if (atab != nullptr) al = alpha * atab[p];
@@ -103,6 +125,7 @@ edge_sweep_kernel(float4* xw, float* lam, const int2* __restrict__ verts,
       if (live) {
         const float4 a0 = xw[v.x];
         const float4 a1 = xw[v.y];
+        if (kLegacy) ws = a0.w + a1.w;
         const float dx = a0.x - a1.x, dy = a0.y - a1.y, dz = a0.z - a1.z;
         const float length = sqrtf(dx * dx + dy * dy + dz * dz);
         const bool valid = (ws != 0.f) && (length >= 1e-12f);
@@ -112,10 +135,17 @@ edge_sweep_kernel(float4* xw, float* lam, const int2* __restrict__ verts,
                            : 0.f;
         dlam = dlam * sc;
         l = l + dlam;
-        const float inv_len = 1.f / (length < 1e-12f ? 1.f : length);
-        cx = (dx * inv_len) * dlam;
-        cy = (dy * inv_len) * dlam;
-        cz = (dz * inv_len) * dlam;
+        const float nl = length < 1e-12f ? 1.f : length;
+        if (kLegacy) {
+          cx = (dx / nl) * dlam;
+          cy = (dy / nl) * dlam;
+          cz = (dz / nl) * dlam;
+        } else {
+          const float inv_len = 1.f / nl;
+          cx = (dx * inv_len) * dlam;
+          cy = (dy * inv_len) * dlam;
+          cz = (dz * inv_len) * dlam;
+        }
       }
       corr[t] = cx;
       corr[kBlock + t] = cy;
@@ -154,11 +184,12 @@ __device__ __forceinline__ void cross3(float ax, float ay, float az,
 }
 
 // XPBD volume sweep.  g_r = cross/6, wsum = sum_r w_r |g_r|^2 with the
-// streamed (count-inflated under split) w_r, guards sum w_r != 0 and
-// wsum >= 1e-20, vol = g_d . (p_d - p_a); the same dlambda and lambda
-// update as the edge sweep.  Corrections: g_r * dlambda * w_target under
-// split (ms != 0, mass splitting applies the plain w of the target), else
-// g_r * (w_r * dlambda).
+// streamed (count-inflated under split) w_r, or the table's w_r when
+// kLegacy; guards sum w_r != 0 and wsum >= 1e-20; the same dlambda and
+// lambda update as the edge sweep.  Corrections: g_r * dlambda * w_target
+// under split (ms != 0, mass splitting applies the plain w of the target),
+// else g_r * (w_r * dlambda).
+template <int kBlock, bool kLegacy>
 __global__ void __launch_bounds__(kBlock, 1)
 tet_sweep_kernel(float4* xw, float* lam, const int4* __restrict__ verts,
                  const float* __restrict__ rest,
@@ -173,6 +204,7 @@ tet_sweep_kernel(float4* xw, float* lam, const int4* __restrict__ verts,
   extern __shared__ float corr[];   // [role][component][lane]
   const int t = threadIdx.x;
   const float sixth = (float)(1.0 / 6.0);
+  const bool split = !kLegacy && ms;
   for (int b = 0; b < nblocks; ++b) {
     const int p = b * kBlock + t;
     const int4 v = verts[p];
@@ -183,7 +215,7 @@ tet_sweep_kernel(float4* xw, float* lam, const int4* __restrict__ verts,
       l = lam[p];
       r = rest[p];
       sc = scale[p];
-      w = wtab[p];
+      if (!kLegacy) w = wtab[p];
       if (atab != nullptr) al = alpha * atab[p];
     }
     const int u0 = blk_vptr[b], u1 = blk_vptr[b + 1];
@@ -193,6 +225,7 @@ tet_sweep_kernel(float4* xw, float* lam, const int4* __restrict__ verts,
       float s[4] = {0.f, 0.f, 0.f, 0.f};
       if (live) {
         const float4 A = xw[v.x], B = xw[v.y], C = xw[v.z], D = xw[v.w];
+        if (kLegacy) w = make_float4(A.w, B.w, C.w, D.w);
         cross3(D.x - B.x, D.y - B.y, D.z - B.z, C.x - B.x, C.y - B.y,
                C.z - B.z, g[0][0], g[0][1], g[0][2]);
         cross3(C.x - A.x, C.y - A.y, C.z - A.z, D.x - A.x, D.y - A.y,
@@ -201,12 +234,19 @@ tet_sweep_kernel(float4* xw, float* lam, const int4* __restrict__ verts,
                B.z - A.z, g[2][0], g[2][1], g[2][2]);
         cross3(B.x - A.x, B.y - A.y, B.z - A.z, C.x - A.x, C.y - A.y,
                C.z - A.z, g[3][0], g[3][1], g[3][2]);
+        float vol = 0.f;
+        if (kLegacy)
+          vol = (g[3][0] * (D.x - A.x) + g[3][1] * (D.y - A.y) +
+                 g[3][2] * (D.z - A.z)) * sixth;
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           g[k][0] = g[k][0] * sixth;
           g[k][1] = g[k][1] * sixth;
           g[k][2] = g[k][2] * sixth;
         }
+        if (!kLegacy)
+          vol = g[3][0] * (D.x - A.x) + g[3][1] * (D.y - A.y) +
+                g[3][2] * (D.z - A.z);
         const float wsum =
             w.x * (g[0][0] * g[0][0] + g[0][1] * g[0][1] + g[0][2] * g[0][2]) +
             w.y * (g[1][0] * g[1][0] + g[1][1] * g[1][1] + g[1][2] * g[1][2]) +
@@ -214,15 +254,13 @@ tet_sweep_kernel(float4* xw, float* lam, const int4* __restrict__ verts,
             w.w * (g[3][0] * g[3][0] + g[3][1] * g[3][1] + g[3][2] * g[3][2]);
         const bool valid =
             ((w.x + w.y + w.z + w.w) != 0.f) && (wsum >= 1e-20f);
-        const float vol = g[3][0] * (D.x - A.x) + g[3][1] * (D.y - A.y) +
-                          g[3][2] * (D.z - A.z);
         const float cfn = vol - r;
         const float denom = wsum + al;
         float dlam = valid ? (-cfn - al * l) / (denom == 0.f ? 1.f : denom)
                            : 0.f;
         dlam = dlam * sc;
         l = l + dlam;
-        if (ms) {
+        if (split) {
           s[0] = s[1] = s[2] = s[3] = dlam;
         } else {
           s[0] = w.x * dlam;
@@ -249,7 +287,7 @@ tet_sweep_kernel(float4* xw, float* lam, const int4* __restrict__ verts,
           float ax = corr[base];
           float ay = corr[base + kBlock];
           float az = corr[base + 2 * kBlock];
-          if (ms) {
+          if (split) {
             ax = ax * x.w;
             ay = ay * x.w;
             az = az * x.w;
@@ -267,6 +305,41 @@ tet_sweep_kernel(float4* xw, float* lam, const int4* __restrict__ verts,
     }
     if (live) lam[p] = l;
   }
+}
+
+template <int kBlock, bool kLegacy>
+int launch_edge(void* xw, float* lam, const int* verts, const float* rest,
+                const float* scale, const float* atab, const float* wsum,
+                const int* blk_vptr, const int* cvert, const int* cptr,
+                const int* centry, int nblocks, float alpha, int local_iters,
+                void* stream) {
+  if (nblocks > 0) {
+    edge_sweep_kernel<kBlock, kLegacy>
+        <<<1, kBlock, 0, (cudaStream_t)stream>>>(
+            (float4*)xw, lam, (const int2*)verts, rest, scale, atab, wsum,
+            blk_vptr, cvert, cptr, centry, nblocks, alpha, local_iters);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int kBlock, bool kLegacy>
+int launch_tet(void* xw, float* lam, const int* verts, const float* rest,
+               const float* scale, const float* atab, const float* wtab,
+               const int* blk_vptr, const int* cvert, const int* cptr,
+               const int* centry, int nblocks, float alpha, int local_iters,
+               int ms, void* stream) {
+  if (nblocks > 0) {
+    auto kernel = tet_sweep_kernel<kBlock, kLegacy>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        tet_smem<kBlock>());
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<1, kBlock, tet_smem<kBlock>(), (cudaStream_t)stream>>>(
+        (float4*)xw, lam, (const int4*)verts, rest, scale, atab,
+        (const float4*)wtab, blk_vptr, cvert, cptr, centry, nblocks, alpha,
+        local_iters, ms);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -293,12 +366,9 @@ int sbs_edge_sweep(void* xw, float* lam, const int* verts, const float* rest,
                    const int* blk_vptr, const int* cvert, const int* cptr,
                    const int* centry, int nblocks, float alpha,
                    int local_iters, void* stream) {
-  if (nblocks > 0) {
-    edge_sweep_kernel<<<1, kBlock, 0, (cudaStream_t)stream>>>(
-        (float4*)xw, lam, (const int2*)verts, rest, scale, atab, wsum,
-        blk_vptr, cvert, cptr, centry, nblocks, alpha, local_iters);
-  }
-  return (int)cudaGetLastError();
+  return launch_edge<kSuper, false>(xw, lam, verts, rest, scale, atab, wsum,
+                                    blk_vptr, cvert, cptr, centry, nblocks,
+                                    alpha, local_iters, stream);
 }
 
 int sbs_tet_sweep(void* xw, float* lam, const int* verts, const float* rest,
@@ -306,17 +376,30 @@ int sbs_tet_sweep(void* xw, float* lam, const int* verts, const float* rest,
                   const int* blk_vptr, const int* cvert, const int* cptr,
                   const int* centry, int nblocks, float alpha,
                   int local_iters, int ms, void* stream) {
-  if (nblocks > 0) {
-    cudaError_t err = cudaFuncSetAttribute(
-        tet_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kTetSmem);
-    if (err != cudaSuccess) return (int)err;
-    tet_sweep_kernel<<<1, kBlock, kTetSmem, (cudaStream_t)stream>>>(
-        (float4*)xw, lam, (const int4*)verts, rest, scale, atab,
-        (const float4*)wtab, blk_vptr, cvert, cptr, centry, nblocks, alpha,
-        local_iters, ms);
-  }
-  return (int)cudaGetLastError();
+  return launch_tet<kSuper, false>(xw, lam, verts, rest, scale, atab, wtab,
+                                   blk_vptr, cvert, cptr, centry, nblocks,
+                                   alpha, local_iters, ms, stream);
+}
+
+int sbs_legacy_edge_sweep(void* xw, float* lam, const int* verts,
+                          const float* rest, const float* scale,
+                          const float* atab, const int* blk_vptr,
+                          const int* cvert, const int* cptr,
+                          const int* centry, int nblocks, float alpha,
+                          void* stream) {
+  return launch_edge<kLegacyWidth, true>(xw, lam, verts, rest, scale, atab,
+                                    nullptr, blk_vptr, cvert, cptr, centry,
+                                    nblocks, alpha, 1, stream);
+}
+
+int sbs_legacy_tet_sweep(void* xw, float* lam, const int* verts,
+                         const float* rest, const float* scale,
+                         const float* atab, const int* blk_vptr,
+                         const int* cvert, const int* cptr, const int* centry,
+                         int nblocks, float alpha, void* stream) {
+  return launch_tet<kLegacyWidth, true>(xw, lam, verts, rest, scale, atab,
+                                   nullptr, blk_vptr, cvert, cptr, centry,
+                                   nblocks, alpha, 1, 0, stream);
 }
 
 }  // extern "C"

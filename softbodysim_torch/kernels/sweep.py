@@ -5,6 +5,10 @@ version beside it.
   _w_fill_kernel``: the streamed inverse-mass table, once per carry pack.
 * ``edge_sweep`` -- replaces ``_edge_kernel_super``: one XPBD distance sweep.
 * ``tet_sweep``  -- replaces ``_tet_kernel_super``: one XPBD volume sweep.
+* ``legacy_edge_sweep`` -- replaces ``_edge_kernel``: one XPBD distance
+  sweep over the 128-wide blocks of a legacy SweepPlan.
+* ``legacy_tet_sweep``  -- replaces ``_tet_kernel``: one XPBD volume sweep
+  over the 128-wide blocks.
 
 A wrapper runs its plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device (raising if the launch is refused); it
@@ -13,7 +17,8 @@ launches, and nothing else.  The sweeps update ``xw`` and ``lam`` in place
 (the JAX kernels return new arrays; in place saves a table copy per sweep).
 
 Tables (see ``sweep_plan.GpuPlan``): ``xw`` (Vpad, 4) f32 rows x, y, z,
-inverse mass in layout order; ``lam`` (NB*1024,) f32 in packed order.
+inverse mass in layout order; ``lam`` (NB*width,) f32 in packed order
+(width 1024 for the super-block sweeps, 128 for the legacy sweeps).
 """
 
 from __future__ import annotations
@@ -24,12 +29,13 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .sweep_plan import BLOCK, GpuPlan
+from ..collide.primitives import cross3
+from .sweep_plan import BLOCK, LANES, GpuPlan
 
 # guard constants as f32-exact doubles (compared in fp32 either way)
-_EPS_LEN = float(np.float32(1e-12))
-_EPS_WSUM = float(np.float32(1e-20))
-_SIXTH = float(np.float32(1.0 / 6.0))
+EPS_LEN = float(np.float32(1e-12))
+EPS_WSUM = float(np.float32(1e-20))
+SIXTH = float(np.float32(1.0 / 6.0))
 
 
 class DevicePlan(NamedTuple):
@@ -37,11 +43,12 @@ class DevicePlan(NamedTuple):
 
     arity: int
     num_blocks: int
+    width: int
     split: bool
     verts: torch.Tensor
     rest: torch.Tensor
     scale: torch.Tensor
-    counts: torch.Tensor
+    counts: Optional[torch.Tensor]
     atab: Optional[torch.Tensor]
     blk_vptr: torch.Tensor
     cvert: torch.Tensor
@@ -63,10 +70,11 @@ def to_device(plan: GpuPlan, device) -> DevicePlan:
 
     i32, f32, i64 = torch.int32, torch.float32, torch.int64
     return DevicePlan(
-        arity=plan.arity, num_blocks=plan.num_blocks,
+        arity=plan.arity, num_blocks=plan.num_blocks, width=plan.width,
         split=plan.scheme == "split",
         verts=t(plan.verts, i32), rest=t(plan.rest, f32),
-        scale=t(plan.scale, f32), counts=t(plan.counts, f32),
+        scale=t(plan.scale, f32),
+        counts=None if plan.counts is None else t(plan.counts, f32),
         atab=None if plan.atab is None else t(plan.atab, f32),
         blk_vptr=t(plan.blk_vptr, i32), cvert=t(plan.cvert, i32),
         cptr=t(plan.cptr, i32), centry=t(plan.centry, i32),
@@ -98,10 +106,14 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name}: must be 16-byte aligned")
 
 
-def _check_plan(plan: DevicePlan, device) -> None:
-    n, a = plan.num_blocks * BLOCK, plan.arity
+def _check_plan(plan: DevicePlan, device, width: int = BLOCK) -> None:
+    if plan.width != width:
+        raise ValueError(f"plan of {plan.width}-wide blocks, this sweep "
+                         f"takes {width}-wide blocks")
+    n, a = plan.num_blocks * width, plan.arity
     _check(plan.verts, "plan.verts", torch.int32, (n, a), device)
-    _check(plan.counts, "plan.counts", torch.float32, (n, a), device)
+    if width == BLOCK:
+        _check(plan.counts, "plan.counts", torch.float32, (n, a), device)
     for name in ("rest", "scale"):
         _check(getattr(plan, name), f"plan.{name}", torch.float32, (n,),
                device)
@@ -181,10 +193,13 @@ w_fill.launches = 0
 
 # --------------------------------------------------------------------------
 # Sweeps: plain versions (a Python loop over blocks in plan order, each
-# block vectorized over its 1024 lanes) and the kernel wrappers
+# block vectorized over its lanes; one version per family for both block
+# widths) and the kernel wrappers
 # --------------------------------------------------------------------------
 
 def _block_csr(plan: DevicePlan, b: int):
+    """Block b's CSR: (row vertex ids, entry lanes, entry roles, entry
+    rows relative to the block)."""
     u0, u1 = int(plan.vptr_host[b]), int(plan.vptr_host[b + 1])
     e0, e1 = int(plan.cptr_host[u0]), int(plan.cptr_host[u1])
     return (plan.cvert[u0:u1].long(), plan.lane[e0:e1], plan.role[e0:e1],
@@ -199,23 +214,28 @@ def _apply(xw, cv, seg, contrib):
 
 
 def edge_sweep_plain(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
-                     wsum: torch.Tensor, alpha: float,
+                     wsum: Optional[torch.Tensor], alpha: float,
                      local_iters: int = 1) -> None:
+    """On a legacy 128-wide plan ``wsum`` is None: w0 + w1 come from xw and
+    the normal is d / |d|, as in the legacy kernel."""
+    legacy = plan.width == LANES
+    W = plan.width
     verts = plan.verts.long()
     for b in range(plan.num_blocks):
-        sl = slice(b * BLOCK, (b + 1) * BLOCK)
+        sl = slice(b * W, (b + 1) * W)
         v = verts[sl]
         live = v[:, 0] >= 0
         v = v.clamp_min(0)
-        ws = wsum[sl]
         al = alpha * plan.atab[sl] if plan.atab is not None else alpha
         cv, lane, role, seg = _block_csr(plan, b)
         l = lam[sl]
         for _ in range(local_iters):
-            d = xw[v[:, 0], :3] - xw[v[:, 1], :3]
+            a0, a1 = xw[v[:, 0]], xw[v[:, 1]]
+            d = a0[:, :3] - a1[:, :3]
             dx, dy, dz = d.unbind(1)
             length = torch.sqrt(dx * dx + dy * dy + dz * dz)
-            valid = live & (ws != 0.0) & (length >= _EPS_LEN)
+            ws = a0[:, 3] + a1[:, 3] if legacy else wsum[sl]
+            valid = live & (ws != 0.0) & (length >= EPS_LEN)
             c = length - plan.rest[sl]
             denom = ws + al
             dlam = torch.where(
@@ -223,48 +243,53 @@ def edge_sweep_plain(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
                 0.0)
             dlam = dlam * plan.scale[sl]
             l = l + dlam
-            inv_len = 1.0 / torch.where(length < _EPS_LEN, 1.0, length)
-            corr = (d * inv_len[:, None]) * dlam[:, None]
+            nl = torch.where(length < EPS_LEN, 1.0, length)[:, None]
+            n = d / nl if legacy else d * (1.0 / nl)
+            corr = n * dlam[:, None]
             wt = xw[cv, 3][seg]
             f = torch.where(role == 0, wt, -wt)
             _apply(xw, cv, seg, corr[lane] * f[:, None])
         lam[sl] = l
 
 
-def _cross(a, b):
-    ax, ay, az = a.unbind(-1)
-    bx, by, bz = b.unbind(-1)
-    return torch.stack([ay * bz - az * by, az * bx - ax * bz,
-                        ax * by - ay * bx], -1)
-
-
 def tet_sweep_plain(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
-                    wtab: torch.Tensor, alpha: float,
+                    wtab: Optional[torch.Tensor], alpha: float,
                     local_iters: int = 1) -> None:
+    """On a legacy 128-wide plan ``wtab`` is None: the w_r come from xw and
+    the volume is (cross . e) times the f32 sixth, as in the legacy
+    kernel."""
+    legacy = plan.width == LANES
+    W = plan.width
     verts = plan.verts.long()
     for b in range(plan.num_blocks):
-        sl = slice(b * BLOCK, (b + 1) * BLOCK)
+        sl = slice(b * W, (b + 1) * W)
         v = verts[sl]
         live = v[:, 0] >= 0
         v = v.clamp_min(0)
-        w = wtab[sl]
+        w = None if legacy else wtab[sl]
         al = alpha * plan.atab[sl] if plan.atab is not None else alpha
         cv, lane, role, seg = _block_csr(plan, b)
         l = lam[sl]
         for _ in range(local_iters):
-            pa, pb, pc, pd = (xw[v[:, k], :3] for k in range(4))
-            g = torch.stack([_cross(pd - pb, pc - pb), _cross(pc - pa, pd - pa),
-                             _cross(pd - pa, pb - pa), _cross(pb - pa, pc - pa)],
-                            1) * _SIXTH                       # (1024, 4, 3)
+            a = [xw[v[:, k]] for k in range(4)]
+            pa, pb, pc, pd = (t[:, :3] for t in a)
+            if legacy:
+                w = torch.stack([t[:, 3] for t in a], 1)        # (W, 4)
+            cd = cross3(pb - pa, pc - pa)
+            g = torch.stack([
+                cross3(pd - pb, pc - pb), cross3(pc - pa, pd - pa),
+                cross3(pd - pa, pb - pa), cd], 1) * SIXTH        # (W, 4, 3)
             n2 = (g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]
                   + g[..., 2] * g[..., 2])
             wn = w * n2
             wsum = ((wn[:, 0] + wn[:, 1]) + wn[:, 2]) + wn[:, 3]
             wtot = ((w[:, 0] + w[:, 1]) + w[:, 2]) + w[:, 3]
-            valid = live & (wtot != 0.0) & (wsum >= _EPS_WSUM)
+            valid = live & (wtot != 0.0) & (wsum >= EPS_WSUM)
             e = pd - pa
-            vol = (g[:, 3, 0] * e[:, 0] + g[:, 3, 1] * e[:, 1]
-                   + g[:, 3, 2] * e[:, 2])
+            gd = cd if legacy else g[:, 3]
+            vol = gd[:, 0] * e[:, 0] + gd[:, 1] * e[:, 1] + gd[:, 2] * e[:, 2]
+            if legacy:
+                vol = vol * SIXTH
             cfn = vol - plan.rest[sl]
             denom = wsum + al
             dlam = torch.where(
@@ -333,3 +358,57 @@ def tet_sweep(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
 
 tet_sweep.launches = 0
 
+
+# --------------------------------------------------------------------------
+# Legacy 128-wide sweeps (superblocks=False): the scale scheme only, w read
+# from the particle table, one visit per block.  Their plain versions are
+# edge_sweep_plain / tet_sweep_plain on a 128-wide plan, which follow the
+# JAX legacy kernels' rounding, so kernel and plain differ only in the
+# order a vertex's corrections are summed.
+# --------------------------------------------------------------------------
+
+def _check_legacy(plan, xw, lam, arity, name):
+    if plan.arity != arity:
+        raise ValueError(f"{name} needs an arity-{arity} plan")
+    dev = _check_xw(xw)
+    _check_plan(plan, dev, LANES)
+    _check(lam, "lam", torch.float32, (plan.num_blocks * LANES,), dev)
+    return dev
+
+
+def legacy_edge_sweep(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
+                      alpha: float) -> None:
+    """One distance sweep over every 128-wide block of a legacy plan, in
+    place on xw and lam (alpha as for ``edge_sweep``)."""
+    dev = _check_legacy(plan, xw, lam, 2, "legacy_edge_sweep")
+    if dev.type == "cpu":
+        return edge_sweep_plain(plan, xw, lam, None, alpha)
+    rc = _lib().sbs_legacy_edge_sweep(
+        _ptr(xw), _ptr(lam), _ptr(plan.verts), _ptr(plan.rest),
+        _ptr(plan.scale), _ptr(plan.atab), _ptr(plan.blk_vptr),
+        _ptr(plan.cvert), _ptr(plan.cptr), _ptr(plan.centry),
+        plan.num_blocks, float(alpha), _stream(dev))
+    _raise_on(rc, "legacy_edge_sweep")
+    legacy_edge_sweep.launches += 1
+
+
+legacy_edge_sweep.launches = 0
+
+
+def legacy_tet_sweep(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
+                     alpha: float) -> None:
+    """One volume sweep over every 128-wide block of a legacy plan, in
+    place on xw and lam."""
+    dev = _check_legacy(plan, xw, lam, 4, "legacy_tet_sweep")
+    if dev.type == "cpu":
+        return tet_sweep_plain(plan, xw, lam, None, alpha)
+    rc = _lib().sbs_legacy_tet_sweep(
+        _ptr(xw), _ptr(lam), _ptr(plan.verts), _ptr(plan.rest),
+        _ptr(plan.scale), _ptr(plan.atab), _ptr(plan.blk_vptr),
+        _ptr(plan.cvert), _ptr(plan.cptr), _ptr(plan.centry),
+        plan.num_blocks, float(alpha), _stream(dev))
+    _raise_on(rc, "legacy_tet_sweep")
+    legacy_tet_sweep.launches += 1
+
+
+legacy_tet_sweep.launches = 0

@@ -1,23 +1,25 @@
 """Host-side (NumPy) packing for the block-synchronous XPBD sweeps.
 
-The host half of ``softbodysim_tpu/kernels/sweep.py``, superblock path only:
-constraints of one family are packed into super-blocks of 1024 constraints
-(``pack_superblocks``, native C++ when available), blocks are regrouped
-(``regroup_plan``) and vertices are laid out for locality
-(``order_vertices`` / ``aligned_order``).  These produce the same plans as
-the JAX package, array for array, and so the same semantics:
+The host half of ``softbodysim_tpu/kernels/sweep.py``: constraints of one
+family are packed either into super-blocks of 1024 constraints
+(``pack_superblocks``, native C++ when available; then regrouped by
+``regroup_plan``) or into the legacy 128-constraint blocks
+(``pack_constraints``, the ``superblocks=False`` path), and vertices are
+laid out for locality (``order_vertices`` / ``aligned_order``).  These
+produce the same plans as the JAX package, array for array, and so the same
+semantics:
 
-* inside a super-block every constraint reads the pre-block positions and
-  the corrections sum (Jacobi);
+* inside a block every constraint reads the pre-block positions and the
+  corrections sum (Jacobi);
 * blocks run one after another in ``perm`` order -- after regrouping -- so
   updates propagate between blocks (Gauss-Seidel).
 
 ``build_gpu_plan`` then turns a plan into what the CUDA kernels read: per
 packed lane the constraint's layout vertex ids, rest value and resolved
-dlambda scale, the w-fill count table, and a per-block vertex CSR that fixes
-the order in which each vertex's corrections are summed.  The TPU-only
-tables (window slots, lane-relative ids, inverse scatter maps, ragged
-profiles) are not carried to the device.
+dlambda scale, the w-fill count table (super-blocks only), and a per-block
+vertex CSR that fixes the order in which each vertex's corrections are
+summed.  The TPU-only tables (window slots, lane-relative ids, inverse
+scatter maps, ragged profiles) are not carried to the device.
 """
 
 from __future__ import annotations
@@ -37,6 +39,39 @@ MAX_GROUPS = 3
 MIN_GROUP_BLOCKS = 4 * SUBBLOCKS
 # aligned_order: target vertices per component group
 ALIGN_GROUP = 2048
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepPlan:
+    """Packed schedule at 128-constraint block granularity (the JAX
+    package's SweepPlan, same arrays): the legacy ``superblocks=False``
+    path.
+
+    slots : (NB, 8) int32 -- cols 0..S-1 window ids, col S used count
+    rel   : (NB*arity, 128) int32 -- per role, slot*128 + lane in window
+    inv   : (NB*S*dmax, 128) int32 -- per (slot, layer): window lane ->
+            role*128 + block lane, or -1
+    rest, scale : (NB, 128) f32 -- scale = 1 / (largest within-block
+            multiplicity of the lane's vertices)
+    perm  : (NB*128,) packed lane -> constraint id (-1 pad)
+    pos_of: (N,) constraint id -> packed lane
+    """
+
+    arity: int
+    num_blocks: int
+    nslots: int
+    dmax: int
+    slots: np.ndarray
+    rel: np.ndarray
+    inv: np.ndarray
+    rest: np.ndarray
+    perm: np.ndarray
+    pos_of: np.ndarray
+    scale: np.ndarray
+
+    @property
+    def capacity(self) -> int:
+        return self.num_blocks * LANES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,24 +116,144 @@ def _pack_order(win: np.ndarray, mode: int = 1) -> np.ndarray:
     return np.lexsort((win.max(axis=1), win.min(axis=1)))
 
 
-def _trim_plan(plan: SuperPlan) -> SuperPlan:
-    """Drop trailing all-empty blocks when fewer than SUBBLOCKS are used."""
-    nb = plan.num_super
-    used_mask = (plan.perm.reshape(nb, BLOCK) >= 0).any(axis=1)
+def block_width(plan) -> int:
+    """Constraints per synchronous block: 1024 for a SuperPlan, 128 for a
+    SweepPlan (the oracle's replay granularity)."""
+    return BLOCK if isinstance(plan, SuperPlan) else LANES
+
+
+def num_blocks(plan) -> int:
+    return plan.num_super if isinstance(plan, SuperPlan) else plan.num_blocks
+
+
+def _trim_plan(plan):
+    """Drop trailing all-empty blocks when fewer than SUBBLOCKS are used
+    (either plan kind)."""
+    is_super = isinstance(plan, SuperPlan)
+    nb, width = num_blocks(plan), block_width(plan)
+    used_mask = (plan.perm.reshape(nb, width) >= 0).any(axis=1)
     used = max(1, int(np.flatnonzero(used_mask).max()) + 1
                if used_mask.any() else 1)
     if used >= SUBBLOCKS or used == nb:
         return plan
     S, dmax, arity = plan.nslots, plan.dmax, plan.arity
-    return SuperPlan(
-        arity=arity, num_super=used, nslots=S, dmax=dmax,
+    sub = SUBBLOCKS if is_super else 1
+    kw = dict(
+        arity=arity, nslots=S, dmax=dmax,
         slots=plan.slots[:used],
-        rel=plan.rel[: used * arity * 8],
-        inv=plan.inv[: used * S * dmax * 8],
-        rest=plan.rest[: used * 8],
-        scale=plan.scale[: used * 8],
-        perm=plan.perm[: used * BLOCK],
+        rel=plan.rel[: used * arity * sub],
+        inv=plan.inv[: used * S * dmax * sub],
+        rest=plan.rest[: used * sub],
+        scale=plan.scale[: used * sub],
+        perm=plan.perm[: used * width],
         pos_of=plan.pos_of)
+    if is_super:
+        return SuperPlan(num_super=used, **kw)
+    return SweepPlan(num_blocks=used, **kw)
+
+
+def pack_constraints(cons: np.ndarray, rest: np.ndarray, *,
+                     slots_cap: int = 4, layer_cap: int = 3,
+                     order_mode: int = 1) -> SweepPlan:
+    """Greedy multi-pass packing into 128-lane blocks with bounded window
+    slots (the JAX package's Python loop, kept as it is): constraints in
+    ``_pack_order`` fill blocks in order; one that would exceed the slot,
+    lane or per-vertex layer budget spills to the next pass, and a
+    slot-starved block closes after 64 consecutive spills."""
+    cons = np.asarray(cons, np.int64)
+    n, arity = cons.shape
+    win = cons // LANES
+    remaining = list(_pack_order(win, order_mode))
+    blocks = []     # (slot_list, [constraint ids])
+
+    while remaining:
+        spill = []
+        cur_slots: list = []
+        cur_ids: list = []
+        cur_counts: dict = {}
+        streak = 0
+
+        def close():
+            nonlocal cur_slots, cur_ids, cur_counts, streak
+            if cur_ids:
+                blocks.append((cur_slots, cur_ids))
+            cur_slots, cur_ids, cur_counts = [], [], {}
+            streak = 0
+
+        for i in remaining:
+            ws = dict.fromkeys(win[i])
+            new_slots = [w for w in ws if w not in cur_slots]
+            if (len(cur_ids) >= LANES
+                    or len(cur_slots) + len(new_slots) > slots_cap):
+                if len(cur_ids) >= LANES or streak >= 64:
+                    close()
+                    new_slots = list(ws)
+                else:
+                    spill.append(i)
+                    streak += 1
+                    continue
+            if any(cur_counts.get(v, 0) >= layer_cap for v in cons[i]):
+                spill.append(i)
+                streak += 1
+                continue
+            cur_slots.extend(new_slots)
+            cur_ids.append(i)
+            streak = 0
+            for v in cons[i]:
+                cur_counts[v] = cur_counts.get(v, 0) + 1
+        close()
+        remaining = spill
+
+    nblk = -(-max(len(blocks), 1) // SUBBLOCKS) * SUBBLOCKS
+    s_cap = slots_cap
+    dmax = 1
+    slots = np.zeros((nblk, 8), np.int32)
+    rel = np.zeros((nblk, arity, LANES), np.int32)
+    rest_p = np.ones((nblk, LANES), np.float32)
+    perm = np.full((nblk * LANES,), -1, np.int64)
+    scale = np.ones((nblk, LANES), np.float32)
+    inv_entries = np.full((nblk, s_cap, layer_cap, LANES), -1, np.int32)
+
+    for b, (slot_list, ids) in enumerate(blocks):
+        slot_list = list(slot_list)
+        for t, w in enumerate(slot_list):
+            slots[b, t] = w
+        for t in range(len(slot_list), s_cap):
+            slots[b, t] = slot_list[0] if slot_list else 0
+        slots[b, s_cap] = len(slot_list)
+
+        lane_layers: dict = {}
+        for j, i in enumerate(ids):
+            perm[b * LANES + j] = i
+            rest_p[b, j] = rest[i]
+            for r in range(arity):
+                v = int(cons[i, r])
+                t = slot_list.index(v // LANES)
+                l_in = v % LANES
+                rel[b, r, j] = t * LANES + l_in
+                layer = lane_layers.get((t, l_in), 0)
+                lane_layers[(t, l_in)] = layer + 1
+                dmax = max(dmax, layer + 1)
+                inv_entries[b, t, layer, l_in] = r * LANES + j
+        # dlambda / m, m the largest within-block multiplicity of the
+        # constraint's vertices
+        for j, i in enumerate(ids):
+            m = 1
+            for r in range(arity):
+                v = int(cons[i, r])
+                m = max(m, lane_layers[(slot_list.index(v // LANES),
+                                        v % LANES)])
+            scale[b, j] = np.float32(1.0) / np.float32(m)
+
+    inv = np.ascontiguousarray(
+        inv_entries[:, :, :dmax, :].reshape(nblk * s_cap * dmax, LANES))
+    pos_of = np.full((n,), -1, np.int64)
+    valid = perm >= 0
+    pos_of[perm[valid]] = np.flatnonzero(valid)
+    return _trim_plan(SweepPlan(
+        arity=arity, num_blocks=nblk, nslots=s_cap, dmax=dmax,
+        slots=slots, rel=rel.reshape(nblk * arity, LANES), inv=inv,
+        rest=rest_p, perm=perm, pos_of=pos_of, scale=scale))
 
 
 def pack_superblocks(cons: np.ndarray, rest: np.ndarray, *,
@@ -459,16 +614,18 @@ def order_vertices(vertices: np.ndarray, edges: Optional[np.ndarray],
 class GpuPlan:
     """One constraint family's sweep schedule in packed order.
 
-    Packed position p = block * 1024 + lane; blocks run in index order.
+    Packed position p = block * width + lane (width 1024 for a SuperPlan,
+    128 for a legacy SweepPlan); blocks run in index order.
 
-    verts   : (NB*1024, arity) int32 layout vertex ids, -1 on pad lanes
-    rest    : (NB*1024,) f32 rest length / signed rest volume (pad 1.0)
-    scale   : (NB*1024,) f32 resolved dlambda factor: omega under 'split',
+    verts   : (NB*width, arity) int32 layout vertex ids, -1 on pad lanes
+    rest    : (NB*width,) f32 rest length / signed rest volume (pad 1.0)
+    scale   : (NB*width,) f32 resolved dlambda factor: omega under 'split',
               the packer's 1/max-multiplicity times omega under 'scale'
-    counts  : (NB*1024, arity) f32 w-fill factors: within-block vertex
+    counts  : (NB*width, arity) f32 w-fill factors: within-block vertex
               multiplicities (``block_counts``) under 'split', ones under
-              'scale'
-    atab    : (NB*1024,) f32 per-constraint compliance, or None
+              'scale'; None for a legacy plan (its kernels read w from the
+              particle table, no w-fill)
+    atab    : (NB*width,) f32 per-constraint compliance, or None
     blk_vptr: (NB+1,) int32 -- block b owns CSR rows blk_vptr[b]:[b+1]
     cvert   : (U,) int32 -- CSR row -> layout vertex id (unique per block)
     cptr    : (U+1,) int32 -- CSR row u owns entries cptr[u]:cptr[u+1]
@@ -479,11 +636,12 @@ class GpuPlan:
 
     arity: int
     num_blocks: int
+    width: int
     scheme: str
     verts: np.ndarray
     rest: np.ndarray
     scale: np.ndarray
-    counts: np.ndarray
+    counts: Optional[np.ndarray]
     atab: Optional[np.ndarray]
     blk_vptr: np.ndarray
     cvert: np.ndarray
@@ -492,18 +650,23 @@ class GpuPlan:
     pos_of: np.ndarray
 
 
-def build_gpu_plan(plan: SuperPlan, cons_layout: np.ndarray, *,
+def build_gpu_plan(plan, cons_layout: np.ndarray, *,
                    scheme: str, omega: float,
                    compliance: Optional[np.ndarray] = None) -> GpuPlan:
-    """GPU schedule of a (regrouped) SuperPlan.
+    """GPU schedule of a (regrouped) SuperPlan or a legacy SweepPlan.
 
     cons_layout: (N, arity) constraint vertices in LAYOUT ids (old2new
     applied).  compliance: optional (N,) per-constraint compliance in
-    public order."""
+    public order.  A SweepPlan takes only the scale scheme at omega 1 (its
+    kernels have no other)."""
     if scheme not in ("scale", "split"):
         raise ValueError(f"unknown block scheme {scheme!r}")
-    a, nb = plan.arity, plan.num_super
-    n = nb * BLOCK
+    legacy = isinstance(plan, SweepPlan)
+    if legacy and (scheme != "scale" or omega != 1.0):
+        raise ValueError("a legacy SweepPlan supports only the scale "
+                         "scheme at omega 1")
+    a, nb, width = plan.arity, num_blocks(plan), block_width(plan)
+    n = nb * width
     perm = plan.perm.reshape(-1)
     live = perm >= 0
     verts = np.full((n, a), -1, np.int32)
@@ -514,7 +677,7 @@ def build_gpu_plan(plan: SuperPlan, cons_layout: np.ndarray, *,
     # stable, so entries of one vertex stay in (lane, role) order
     p_idx, r_idx = np.nonzero(verts >= 0)
     v = verts[p_idx, r_idx].astype(np.int64)
-    blk = p_idx // BLOCK
+    blk = p_idx // width
     nv = int(v.max()) + 1 if v.size else 1
     order = np.argsort(blk * nv + v, kind="stable")
     key_s = (blk * nv + v)[order]
@@ -526,7 +689,7 @@ def build_gpu_plan(plan: SuperPlan, cons_layout: np.ndarray, *,
     cptr = np.append(seg_start, len(key_s))
     blk_vptr = np.searchsorted(blk[order][seg_start], np.arange(nb + 1))
 
-    counts = np.ones((n, a), np.float32)
+    counts = None if legacy else np.ones((n, a), np.float32)
     if scheme == "split":
         counts[p_idx[order], r_idx[order]] = seg_len[cseg]
         scale = np.full((n,), np.float32(omega), np.float32)
@@ -542,12 +705,12 @@ def build_gpu_plan(plan: SuperPlan, cons_layout: np.ndarray, *,
         atab[live] = c[perm[live]]
 
     return GpuPlan(
-        arity=a, num_blocks=nb, scheme=scheme, verts=verts,
+        arity=a, num_blocks=nb, width=width, scheme=scheme, verts=verts,
         rest=np.ascontiguousarray(plan.rest.reshape(-1), np.float32),
         scale=np.ascontiguousarray(scale, np.float32),
         counts=counts, atab=atab,
         blk_vptr=blk_vptr.astype(np.int32),
         cvert=v[order][seg_start].astype(np.int32),
         cptr=cptr.astype(np.int32),
-        centry=((p_idx % BLOCK) * 4 + r_idx)[order].astype(np.int32),
+        centry=((p_idx % width) * 4 + r_idx)[order].astype(np.int32),
         pos_of=plan.pos_of.copy())

@@ -230,7 +230,8 @@ class JacobiStep:
         if (l2w is None) != (self.l2w is None):
             raise ValueError("runtime transforms require make-time "
                              "transforms")
-        cols = runtime_colliders(self.colliders, colliders_rt, self.device)
+        cols = kc.runtime_colliders(self.colliders, colliders_rt,
+                                    self.device)
         packed = kc.pack_colliders(cols, self.device)
         grav = self.gravity if w2l is None else w2l[:3, :3] @ self.gravity
 
@@ -267,21 +268,6 @@ class JacobiStep:
         for _ in range(int(n)):
             state = self(state, dt, **overrides)
         return state
-
-
-def runtime_colliders(template: Optional[Colliders],
-                       colliders_rt: Optional[Colliders], device):
-    """The collider set of this step: the runtime poses when given (same
-    count as the make-time template), else the template."""
-    if colliders_rt is None:
-        return template
-    if template is None:
-        raise ValueError("runtime colliders require a make-time collider "
-                         "template")
-    if colliders_rt.count != template.count:
-        raise ValueError(f"runtime colliders: {colliders_rt.count} slots, "
-                         f"the template has {template.count}")
-    return colliders_rt.to(device)
 
 
 def make_jacobi_step(topology, params: SolverParams,

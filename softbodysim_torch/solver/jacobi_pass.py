@@ -36,7 +36,6 @@ from ..core.state import SimState, SolverParams, f32, resolve_device
 from ..kernels import collide as kc
 from ..kernels import jacobi as kj
 from .accel import chebyshev_loop
-from .jacobi import runtime_colliders
 
 
 class PassCarry(NamedTuple):
@@ -114,7 +113,8 @@ class JacobiPassStep:
         k_vol = f32((1.0 if self._per_k[1] else p.volume_stiffness)
                     if volume_stiffness is None else volume_stiffness)
         omega = f32(p.sor_omega if sor_omega is None else sor_omega)
-        cols = runtime_colliders(self.colliders, colliders_rt, self.device)
+        cols = kc.runtime_colliders(self.colliders, colliders_rt,
+                                    self.device)
         packed = kc.pack_colliders(cols, self.device)
 
         ss = max(1, p.substeps)

@@ -4,7 +4,9 @@ devices.
 ``xpbd_backend="auto"`` resolves to the sweep kernels ("sweep") on a CUDA
 device at >= 100k constraints and to the coloured Gauss-Seidel backend
 ("gather") otherwise; "pallas", the JAX package's name for its sweep
-kernels, is an alias of "sweep".  ``jacobi_backend="auto"`` resolves to the
+kernels, is an alias of "sweep", and "scatter", its other coloured
+backend, an alias of "gather" (the same coloured sweep, computed once
+here).  ``jacobi_backend="auto"`` resolves to the
 pass kernels ("pass") on a CUDA device at >= 100k constraints without a
 body transform and to "gather" otherwise; "pallas" is an alias of "pass".
 """
@@ -30,6 +32,8 @@ def resolve_backend(topology, params, *, device=None,
     kernel = _KERNEL_BACKEND[params.dialect]
     if backend == "pallas":
         return kernel
+    if backend == "scatter" and params.dialect == "xpbd":
+        return "gather"
     if backend != "auto":
         return backend
     big = (topology.num_edges + topology.num_tets) >= SWEEP_MIN_CONSTRAINTS

@@ -1,28 +1,328 @@
-"""XPBD dialect dispatch (the C++ PBDServer contract).
+"""XPBD dialect -- the C++ PBDServer contract (Sim.cpp:100-305) -- and its
+coloured Gauss-Seidel backends.
 
-Backends: "sweep" (block-synchronous CUDA sweep kernels, solver/
-xpbd_sweep.py).  The coloured Gauss-Seidel backends ("gather", "scatter")
-are not ported yet.
+Backends (``params.xpbd_backend``, resolved by ``select.resolve_backend``):
+  "sweep"   -- the block-synchronous CUDA sweep kernels
+               (``solver/xpbd_sweep.py``; 'pallas' is its alias), at
+               either block width (``superblocks``);
+  "gather"  -- coloured Gauss-Seidel, colour-major: contiguous lambda
+               slices and one (V, 3) correction-table row gather per colour
+               (each colour's constraints share no vertex, so each vertex
+               has at most one row); 'scatter' is its alias.
+The coloured backend is the counterpart of
+``softbodysim_tpu/solver/xpbd.py:41-510``, whose 'gather' and 'scatter'
+backends compute the same coloured sweep with XLA ops (two forms for
+XLA's cost on a TPU); here it is plain tensor ops, on either device, and
+one form serves both names.  On the card one iteration's
+colour passes and ground clamp -- tens of tiny ops per colour -- are
+captured once as a CUDA graph (per pair of compliance scalars) and
+replayed, so the host launches one graph instead of every op (the JAX
+package compiles the same loop into one XLA program).  Every backend
+applies colliders (world space, particle radius 0) after the ground clamp
+in each iteration; on a CUDA device that stage is the fused collide
+kernel (``kernels/collide.py``), launched outside the graph, on the CPU its
+plain version.  Self and surface collision are not ported (ROADMAP.md
+queue 1 item 9).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..collide.primitives import Colliders, cross3, dot3
+from ..core.state import SimState, SolverParams, f32, resolve_device
+from ..kernels import collide as kc
+from ..kernels.sweep import EPS_LEN, EPS_WSUM, SIXTH
 from .select import resolve_backend
 
 
+def edge_dlambda(x, w, i0, i1, rest, lam, alpha):
+    """One colour's distance projection (Sim.cpp:100-130): (dlambda, the
+    role-0 correction n*dlambda, w0, w1); invalid constraints get 0."""
+    w0, w1 = w[i0], w[i1]
+    wsum = w0 + w1
+    d = x[i0] - x[i1]
+    length = torch.sqrt(dot3(d, d))
+    valid = (wsum != 0.0) & (length >= EPS_LEN)
+    denom = wsum + alpha
+    dlam = torch.where(
+        valid, (-(length - rest) - alpha * lam)
+        / torch.where(denom == 0.0, 1.0, denom), 0.0)
+    n = d * (1.0 / torch.where(length < EPS_LEN, 1.0, length))[:, None]
+    return dlam, n * dlam[:, None], w0, w1
+
+
+def tet_dlambda(x, w, idx, rest, lam, alpha):
+    """One colour's volume projection (Sim.cpp:132-173): (dlambda, the four
+    corner corrections g_r * (w_r * dlambda))."""
+    ws = [w[i] for i in idx]
+    pa, pb, pc, pd = (x[i] for i in idx)
+    g = (cross3(pd - pb, pc - pb) * SIXTH, cross3(pc - pa, pd - pa) * SIXTH,
+         cross3(pd - pa, pb - pa) * SIXTH, cross3(pb - pa, pc - pa) * SIXTH)
+    wsum = (((ws[0] * dot3(g[0], g[0]) + ws[1] * dot3(g[1], g[1]))
+             + ws[2] * dot3(g[2], g[2])) + ws[3] * dot3(g[3], g[3]))
+    valid = ((((ws[0] + ws[1]) + ws[2]) + ws[3]) != 0.0) & (wsum >= EPS_WSUM)
+    vol = dot3(cross3(pb - pa, pc - pa), pd - pa) / 6.0
+    denom = wsum + alpha
+    dlam = torch.where(
+        valid, (-(vol - rest) - alpha * lam)
+        / torch.where(denom == 0.0, 1.0, denom), 0.0)
+    return dlam, [gr * (wr * dlam)[:, None] for gr, wr in zip(g, ws)]
+
+
+def _colour_slices(groups):
+    """Colour-major layout: (order, [(start, end) per colour])."""
+    sizes = groups.mask.sum(axis=1).astype(np.int64)
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    return groups.order, [(int(starts[i]), int(starts[i + 1]))
+                          for i in range(len(sizes))]
+
+
+def _vertex_slot_map(num_vertices, rows, arity):
+    """Vertex -> row of one colour's role-major correction table (role r of
+    constraint j at r*K + j); vertices absent from the colour point at the
+    zero row arity*K.  Valid because a colour's constraints share no
+    vertex."""
+    k = len(rows)
+    vslot = np.full((num_vertices,), arity * k, np.int64)
+    for r in range(arity):
+        vslot[rows[:, r]] = r * k + np.arange(k)
+    return vslot
+
+
+class ColouredStep:
+    """``step(state, dt, ...) -> state`` on the coloured Gauss-Seidel
+    backend, lambdas in public order at the step boundary."""
+
+    backend = "gather"
+
+    def __init__(self, topology, params: SolverParams,
+                 colliders: Optional[Colliders] = None, *, device=None):
+        if params.self_collision or (params.surface_collision
+                                     and len(topology.surface_tris)):
+            raise NotImplementedError(
+                "self / surface collision is not ported yet (ROADMAP.md "
+                "queue 1 item 9)")
+        dev = self.device = resolve_device(device)
+        self.params = params
+        self.has_edges = topology.num_edges > 0
+        self.has_tets = topology.num_tets > 0
+        self.colliders = None if colliders is None else colliders.to(dev)
+        self._gravity = torch.tensor(params.gravity, dtype=torch.float32,
+                                     device=dev)
+        V = topology.num_particles
+        self._graphs = {}        # (e_alpha, t_alpha) -> (graph, output)
+
+        def i64(a):
+            return torch.as_tensor(np.asarray(a, np.int64)).to(dev)
+
+        def f32t(a):
+            return torch.as_tensor(np.asarray(a, np.float32)).to(dev)
+
+        self._fam = {}
+        for fam, cons, rest, groups, arity in (
+                ("edges", topology.edges, topology.edge_rest,
+                 topology.edge_colors, 2),
+                ("tets", topology.tets, topology.tet_rest_vol,
+                 topology.tet_colors, 4)):
+            if len(cons) == 0:
+                continue
+            order, slices = _colour_slices(groups)
+            cm = np.asarray(cons, np.int64)[order]
+            self._fam[fam] = dict(
+                idx=[i64(cm[:, r]) for r in range(arity)],
+                rest=f32t(np.asarray(rest)[order]), slices=slices,
+                vslots=[i64(_vertex_slot_map(V, cm[s:e], arity))
+                        for s, e in slices],
+                perm=i64(order), inv=i64(np.argsort(order)))
+        # on the card, the graphs' static inputs: positions, inverse
+        # masses, lambdas
+        self._buf = None if dev.type != "cuda" else dict(
+            x=torch.zeros((V, 3), device=dev),
+            w=torch.zeros((V,), device=dev),
+            lam={fam: torch.zeros((n,), device=dev) for fam, n in (
+                ("edges", topology.num_edges), ("tets", topology.num_tets))
+                if fam in self._fam})
+
+    # ---- colour passes ----------------------------------------------------
+
+    # lam: this step's own colour-major tensor, updated in place; x: new
+    # tensors per colour
+
+    def _edges(self, x, w, lam, alpha):
+        f = self._fam["edges"]
+        i0a, i1a = f["idx"]
+        zero = x.new_zeros((1, 3))
+        for (s, e), vslot in zip(f["slices"], f["vslots"]):
+            dlam, corr, w0, w1 = edge_dlambda(
+                x, w, i0a[s:e], i1a[s:e], f["rest"][s:e], lam[s:e], alpha)
+            rows = torch.cat([corr * w0[:, None], -corr * w1[:, None], zero])
+            x = x + rows[vslot]
+            lam[s:e] = lam[s:e] + dlam
+        return x
+
+    def _tets(self, x, w, lam, alpha):
+        f = self._fam["tets"]
+        zero = x.new_zeros((1, 3))
+        for (s, e), vslot in zip(f["slices"], f["vslots"]):
+            dlam, corrs = tet_dlambda(
+                x, w, [i[s:e] for i in f["idx"]], f["rest"][s:e], lam[s:e],
+                alpha)
+            x = x + torch.cat(corrs + [zero])[vslot]
+            lam[s:e] = lam[s:e] + dlam
+        return x
+
+    def _solve(self, xs, w, lam, e_alpha, t_alpha):
+        """One iteration but its collider stage: the colour passes, then the
+        ground clamp (Sim.cpp:187-195)."""
+        if self.has_edges:
+            xs = self._edges(xs, w, lam["edges"], e_alpha)
+        if self.has_tets:
+            xs = self._tets(xs, w, lam["tets"], t_alpha)
+        if self.params.ground_enabled:
+            y = xs[:, 1]
+            xs = torch.stack([xs[:, 0], torch.where(
+                w != 0.0, y.clamp_min(f32(self.params.ground_y)), y),
+                xs[:, 2]], 1)
+        return xs
+
+    _GRAPHS_KEPT = 4
+
+    def _graph(self, e_alpha, t_alpha):
+        """(graph, output) of ``_solve`` on the static buffers, captured at
+        first use of these compliance scalars (the oldest of
+        _GRAPHS_KEPT is dropped)."""
+        hit = self._graphs.get((e_alpha, t_alpha))
+        if hit is not None:
+            return hit
+        b, dev = self._buf, self.device
+        # one eager run on a side stream first (lazy set-up stays out of
+        # the capture), on copies: capture records, it does not run
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._solve(b["x"].clone(), b["w"],
+                        {k: v.clone() for k, v in b["lam"].items()},
+                        e_alpha, t_alpha)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = self._solve(b["x"], b["w"], b["lam"], e_alpha, t_alpha)
+        if len(self._graphs) >= self._GRAPHS_KEPT:
+            self._graphs.pop(next(iter(self._graphs)))
+        self._graphs[(e_alpha, t_alpha)] = (graph, out)
+        return graph, out
+
+    # ---- stepping ---------------------------------------------------------
+
+    def __call__(self, state: SimState, dt, edge_compliance=None,
+                 volume_compliance=None, friction=None, gravity_override=None,
+                 colliders_rt: Optional[Colliders] = None) -> SimState:
+        """One step.  Overrides of the SolverParams fields for this step:
+        the compliances, ``friction``, ``gravity_override`` and the collider
+        poses ``colliders_rt`` (same count as the make-time set)."""
+        p, dev = self.params, self.device
+        cols = kc.runtime_colliders(self.colliders, colliders_rt, dev)
+        packed = None if cols is None else kc.pack_colliders(cols, dev)
+        ec = np.float32(p.edge_compliance if edge_compliance is None
+                        else edge_compliance)
+        vc = np.float32(p.volume_compliance if volume_compliance is None
+                        else volume_compliance)
+        # 1 - friction: in f32 for a runtime override (a traced scalar in
+        # the JAX step), from the Python float otherwise
+        keep = (np.float32(1.0) - np.clip(np.float32(friction), 0.0, 1.0)
+                if friction is not None
+                else np.float32(1.0 - min(1.0, max(0.0, p.friction))))
+        grav = (self._gravity if gravity_override is None else torch.tensor(
+            np.asarray(gravity_override, np.float32), device=dev))
+        ss = max(1, p.substeps)
+        sdt = np.float32(dt) / np.float32(ss)
+        big = sdt > np.float32(1e-12)
+        inv_dt2 = np.float32(1.0) / (sdt * sdt) if big else np.float32(0.0)
+        inv_dt = float(np.float32(1.0) / sdt) if big else 0.0
+        e_alpha = float(np.maximum(ec, np.float32(0.0)) * inv_dt2)
+        t_alpha = float(np.maximum(vc, np.float32(0.0)) * inv_dt2)
+        sdt = float(sdt)
+
+        w = state.inv_mass
+        pinned = (w == 0.0)[:, None]
+        # the colour-major lambdas this step updates in place; on the card
+        # the graphs' static buffers
+        graphed = self._buf is not None
+        lam = self._buf["lam"] if graphed else {}
+        for fam, pub in (("edges", state.edge_lambda),
+                         ("tets", state.tet_lambda)):
+            if fam in self._fam:
+                pub = pub[self._fam[fam]["perm"]]
+                if graphed:
+                    lam[fam].copy_(pub)
+                else:
+                    lam[fam] = pub
+        if graphed:
+            self._buf["w"].copy_(w)
+            graph, out = self._graph(e_alpha, t_alpha)
+
+        x, v = state.x, state.v
+        for _ in range(ss):
+            # predict (Sim.cpp:178-185)
+            v = torch.where(pinned, v, v + grav * sdt)
+            xs = torch.where(pinned, x, x + v * sdt)
+            for _ in range(p.iterations):
+                if graphed:
+                    self._buf["x"].copy_(xs)
+                    graph.replay()
+                    xs = out
+                else:
+                    xs = self._solve(xs, w, lam, e_alpha, t_alpha)
+                if packed is not None:
+                    xw = torch.cat([xs, w[:, None]], 1).contiguous()
+                    xs = kc.collide(xw, packed, kc.XPBD_GROUND)[:, :3]
+            # commit (Sim.cpp:197-222)
+            vel = (xs - x) * inv_dt
+            if p.ground_enabled:
+                on_g = xs[:, 1] <= f32(p.ground_y + 1e-6)
+                vx = torch.where(on_g, vel[:, 0] * float(keep), vel[:, 0])
+                vz = torch.where(on_g, vel[:, 2] * float(keep), vel[:, 2])
+                vy = torch.where(on_g & (vel[:, 1] < 0.0), 0.0, vel[:, 1])
+                vel = torch.stack([vx, vy, vz], 1)
+            v = torch.where(pinned, 0.0, vel)
+            x = torch.where(pinned, x, xs)
+
+        lam = {fam: l[self._fam[fam]["inv"]] for fam, l in lam.items()}
+        return SimState(x=x, v=v, x_star=x, inv_mass=w,
+                        edge_lambda=lam.get("edges", state.edge_lambda),
+                        tet_lambda=lam.get("tets", state.tet_lambda))
+
+    def step_n(self, state: SimState, dt, n: int, **overrides) -> SimState:
+        for _ in range(int(n)):
+            state = self(state, dt, **overrides)
+        return state
+
+
 def make_xpbd_step(topology, params, colliders=None, *, device=None,
-                   edge_c=None, tet_c=None):
+                   superblocks: bool = True, edge_c=None, tet_c=None):
     """Build ``step(state, dt) -> state`` for the resolved backend.
 
-    edge_c / tet_c: optional per-constraint compliance (public order)."""
+    superblocks: the sweep backend's block width (1024-wide super-blocks,
+    or the legacy 128-wide blocks when False).  edge_c / tet_c: optional
+    per-constraint compliance (public order), sweep backend only."""
     backend = resolve_backend(topology, params, device=device)
     if backend == "sweep":
         from .xpbd_sweep import SweepStep
 
         return SweepStep(topology, params, colliders, device=device,
-                         edge_c=edge_c, tet_c=tet_c)
-    if backend in ("gather", "scatter"):
-        raise NotImplementedError(
-            f"xpbd_backend {backend!r} (coloured Gauss-Seidel) is not ported "
-            "yet (ROADMAP.md queue 1 item 4); use xpbd_backend='sweep'")
-    raise ValueError(f"unknown xpbd_backend {backend!r}")
+                         superblocks=superblocks, edge_c=edge_c, tet_c=tet_c)
+    if backend != "gather":
+        raise ValueError(f"unknown xpbd_backend {backend!r}")
+    if edge_c is not None or tet_c is not None:
+        raise ValueError(
+            "per-constraint compliance (edge_c / tet_c) requires "
+            "xpbd_backend='sweep' (the coloured backend uses scalar "
+            "compliance)")
+    if not superblocks:
+        raise ValueError("superblocks=False selects the legacy sweep "
+                         "kernels: it requires xpbd_backend='sweep'")
+    return ColouredStep(topology, params, colliders, device=device)

@@ -1,12 +1,15 @@
-"""XPBD solver on the block-synchronous sweep kernels -- the single large
-scene path.
+"""XPBD solver on the block-synchronous sweep kernels -- the large scene
+path, at either block width.
 
 The counterpart of ``softbodysim_tpu/solver/xpbd_pallas.py`` (flat path):
 the same physics contract (XPBD compliance, lambda accumulated across the
-whole run, ground clamp inside iterations, friction at commit), the same
-host plans, the same block order and block scheme, on the CUDA kernels of
-``kernels/sweep.py``.  No segmentation: the particle table lives in device
-memory, not in a bounded scratchpad.
+whole run, ground clamp and then the colliders inside iterations, friction
+at commit), the same host plans, the same block order and block scheme, on
+the CUDA kernels of ``kernels/sweep.py``.  ``superblocks=True`` (default)
+packs 1024-wide super-blocks and runs the w-fill and super-block sweeps;
+``superblocks=False`` packs the legacy 128-wide blocks and runs the legacy
+sweeps (scale scheme only).  No segmentation: the particle table lives in
+device memory, not in a bounded scratchpad.
 
 Internal layout (one device):
   xw : (Vpad, 4) f32 -- x* xyz + inverse mass, rows in layout order
@@ -26,15 +29,19 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..collide.primitives import Colliders
 from ..core.state import SimState, SolverParams, f32, resolve_device
+from ..io import plan_store
+from ..kernels import collide as kc
 from ..kernels import sweep as sw
 from ..kernels import sweep_plan as sp
 
 LANES = sp.LANES
 
-# Packing a 600k-constraint topology takes seconds of host work; memoize
-# per topology object, so steps rebuilt with other substeps / iterations /
-# schemes reuse the plans.  Entries die with the topology.
+# Packing a 600k-constraint topology takes seconds (super-blocks) to tens of
+# seconds (legacy blocks) of host work; memoize per topology object and
+# block width, so steps rebuilt with other substeps / iterations / schemes
+# reuse the plans.  Entries die with the topology.
 _PLAN_CACHE: dict = {}
 
 
@@ -57,15 +64,7 @@ def _pack_best(cons, rest, layer_cap, arity):
     return best[1]
 
 
-def cached_plans(topology):
-    """(perm_layout, old2new, nwin, e_plan, t_plan), as the JAX package's
-    ``_cached_plans`` with its defaults (flat superblock path, 'auto'
-    vertex order, adaptive slot caps).  perm_layout is (nwin*128,) old
-    vertex ids, == V on dead slots."""
-    key = id(topology)
-    hit = _PLAN_CACHE.get(key)
-    if hit is not None:
-        return hit
+def _pack(topology, superblocks):
     V = topology.num_particles
     has_edges = topology.num_edges > 0
     has_tets = topology.num_tets > 0
@@ -84,28 +83,60 @@ def cached_plans(topology):
         old2new[perm] = np.arange(V)
     nwin = len(perm_layout) // LANES
 
-    e_plan = t_plan = None
-    # same-block multiplicity cap: 2 for edges, 3 for tets
-    if has_edges:
-        e_plan = sp.regroup_plan(_pack_best(
-            old2new[topology.edges.astype(np.int64)],
-            topology.edge_rest, 2, 2))
-    if has_tets:
-        t_plan = sp.regroup_plan(_pack_best(
-            old2new[topology.tets.astype(np.int64)],
-            topology.tet_rest_vol, 3, 4))
-    result = (perm_layout, old2new, nwin, e_plan, t_plan)
+    def pack(cons, rest, lcap, arity):
+        cons = old2new[cons.astype(np.int64)]
+        if superblocks:
+            return sp.regroup_plan(_pack_best(cons, rest, lcap, arity))
+        # legacy 128-wide blocks: 4 window slots, multiplicity cap 3
+        return sp.pack_constraints(cons, rest, slots_cap=4, layer_cap=3)
+
+    # same-block multiplicity cap (super-blocks): 2 for edges, 3 for tets
+    e_plan = (pack(topology.edges, topology.edge_rest, 2, 2)
+              if has_edges else None)
+    t_plan = (pack(topology.tets, topology.tet_rest_vol, 3, 4)
+              if has_tets else None)
+    return perm_layout, old2new, nwin, e_plan, t_plan
+
+
+def cached_plans(topology, superblocks: bool = True):
+    """(perm_layout, old2new, nwin, e_plan, t_plan), as the JAX package's
+    ``_cached_plans`` with its defaults ('auto' vertex order; adaptive slot
+    caps for super-blocks, slots_cap 4 / layer_cap 3 for the legacy
+    blocks).  perm_layout is (nwin*128,) old vertex ids, == V on dead
+    slots.  Memoized per topology object; packed plans also go to the disk
+    cache (``io/plan_store.py``) unless it is disabled."""
+    key = (id(topology), bool(superblocks))
+    hit = _PLAN_CACHE.get(key)
+    if hit is not None:
+        return hit
+    has_edges = topology.num_edges > 0
+    has_tets = topology.num_tets > 0
+    dkey = plan_store.content_key([
+        "xpbd_sweep_plans", topology.num_particles, topology.vertices,
+        topology.edges if has_edges else None,
+        topology.edge_rest if has_edges else None,
+        topology.tets if has_tets else None,
+        topology.tet_rest_vol if has_tets else None,
+        bool(superblocks),
+    ]) if plan_store.enabled() else None
+    result = plan_store.load(dkey) if dkey is not None else None
+    if result is None:
+        result = _pack(topology, superblocks)
+        if dkey is not None:
+            plan_store.save(dkey, result)
     _PLAN_CACHE[key] = result
     weakref.finalize(topology, _PLAN_CACHE.pop, key, None)
     return result
 
 
-def resolve_block_scheme(params: SolverParams) -> dict:
+def resolve_block_scheme(params: SolverParams, legacy: bool = False) -> dict:
     """{"edge": (scheme, omega, k), "tet": (scheme, omega, k)}.
 
     Each knob takes a scalar or an (edge, tet) pair.  'auto' resolves to
-    the tuned split defaults: both families mass-split, omega (1.5, 2.2)
-    when the omega knob is left at its neutral 1.0, one visit per block."""
+    the tuned split defaults -- both families mass-split, omega (1.5, 2.2)
+    when the omega knob is left at its neutral 1.0, one visit per block --
+    and to the scale scheme on the legacy 128-wide path, whose kernels have
+    no other (``xpbd_pallas.py:316``)."""
 
     def pair(v, cast):
         if isinstance(v, (tuple, list)):
@@ -118,20 +149,22 @@ def resolve_block_scheme(params: SolverParams) -> dict:
     ke, kt = pair(params.xpbd_block_local_iters, lambda x: max(1, int(x)))
     om_default = not isinstance(params.xpbd_block_omega, (tuple, list)) \
         and float(params.xpbd_block_omega) == 1.0
+    auto = "scale" if legacy else "split"
     if se == "auto":
-        se = "split"
-        if om_default:
+        se = auto
+        if se == "split" and om_default:
             oe = 1.5
     if st == "auto":
-        st = "split"
-        if om_default:
+        st = auto
+        if st == "split" and om_default:
             ot = 2.2
     return {"edge": (se, oe, ke), "tet": (st, ot, kt)}
 
 
 class Carry(NamedTuple):
     """Internal run state: layout tables, packed lambdas and the streamed
-    inverse-mass tables (filled once per pack; masses never change)."""
+    inverse-mass tables (super-blocks: filled once per pack, masses never
+    change; None on the legacy path, whose kernels read w from xw)."""
 
     xw: torch.Tensor
     xp: torch.Tensor
@@ -147,16 +180,30 @@ class SweepStep:
     API: ``pack_state`` -> ``run_carry``* -> ``unpack_state`` keeps the
     internal layout on the device across any number of calls, and
     ``carry_positions`` reads committed positions without unpacking the
-    lambdas."""
+    lambdas.
+
+    superblocks: 1024-wide super-blocks (default) or the legacy 128-wide
+    blocks (scale scheme, omega 1, one visit, f32 table; anything else
+    raises ValueError).  colliders: a make-time collider set, applied after
+    the ground clamp in every iteration; ``colliders_rt`` moves it per
+    call.  edge_c / tet_c: optional per-constraint compliance (public
+    order); the compliance scalars then scale them."""
 
     backend = "sweep"
 
-    def __init__(self, topology, params: SolverParams, colliders=None, *,
-                 device=None, edge_c=None, tet_c=None):
-        if colliders is not None:
-            raise NotImplementedError(
-                "colliders on the xpbd sweep backend are not ported yet "
-                "(ROADMAP.md queue 1 item 5)")
+    def __init__(self, topology, params: SolverParams,
+                 colliders: Optional[Colliders] = None, *, device=None,
+                 superblocks: bool = True, edge_c=None, tet_c=None):
+        fam = resolve_block_scheme(params, legacy=not superblocks)
+        if not superblocks and (
+                fam["edge"] != ("scale", 1.0, 1)
+                or fam["tet"] != ("scale", 1.0, 1)
+                or params.xpbd_x_dtype != "float32"):
+            raise ValueError(
+                "the legacy 128-wide sweep kernels support only the scale "
+                "scheme at omega 1 with one visit per block on the float32 "
+                "table (use superblocks=True for split / omega / "
+                "local_iters / xpbd_x_dtype)")
         if params.xpbd_x_dtype == "bfloat16":
             raise NotImplementedError(
                 "xpbd_x_dtype='bfloat16' is not ported yet (ROADMAP.md "
@@ -169,14 +216,16 @@ class SweepStep:
             raise NotImplementedError(
                 "self / surface collision is not ported yet (ROADMAP.md "
                 "queue 1 item 9)")
-        self.device = resolve_device(device)
+        dev = self.device = resolve_device(device)
         self.params = params
+        self.superblocks = bool(superblocks)
         self.has_edges = topology.num_edges > 0
         self.has_tets = topology.num_tets > 0
         self._edge_c, self._tet_c = edge_c, tet_c
+        self.colliders = None if colliders is None else colliders.to(dev)
 
-        perm, old2new, nwin, e_plan, t_plan = cached_plans(topology)
-        fam = resolve_block_scheme(params)
+        perm, old2new, nwin, e_plan, t_plan = cached_plans(topology,
+                                                           superblocks)
         (e_sch, e_om, self._e_k), (t_sch, t_om, self._t_k) = \
             fam["edge"], fam["tet"]
         self.block_order = {"edges": e_plan, "tets": t_plan}
@@ -192,16 +241,25 @@ class SweepStep:
                 scheme=t_sch, omega=t_om, compliance=tet_c)
             if self.has_tets else None,
         }
-        self.device_plans = {k: sw.to_device(p, self.device)
+        self.device_plans = {k: sw.to_device(p, dev)
                              for k, p in self.gpu_plans.items()
                              if p is not None}
-        dev = self.device
         self._perm = torch.as_tensor(perm, dtype=torch.int64).to(dev)
         self._old2new = torch.as_tensor(old2new, dtype=torch.int64).to(dev)
         self._pos_of = {k: torch.as_tensor(p.pos_of).to(dev)
                         for k, p in self.gpu_plans.items() if p is not None}
         self._gravity = torch.tensor(params.gravity, dtype=torch.float32,
                                      device=dev)
+        if superblocks:
+            self._edge_sweep = lambda plan, c, a: sw.edge_sweep(
+                plan, c.xw, c.lam_e, c.w_e, a, self._e_k)
+            self._tet_sweep = lambda plan, c, a: sw.tet_sweep(
+                plan, c.xw, c.lam_t, c.w_t, a, self._t_k)
+        else:
+            self._edge_sweep = lambda plan, c, a: sw.legacy_edge_sweep(
+                plan, c.xw, c.lam_e, a)
+            self._tet_sweep = lambda plan, c, a: sw.legacy_tet_sweep(
+                plan, c.xw, c.lam_t, a)
 
     # ---- public <-> internal layout --------------------------------------
 
@@ -222,18 +280,21 @@ class SweepStep:
             plan = self.device_plans.get(fam)
             if plan is None:
                 return torch.zeros((0,), dtype=torch.float32, device=dev)
-            out = torch.zeros((plan.num_blocks * sp.BLOCK,),
+            out = torch.zeros((plan.num_blocks * plan.width,),
                               dtype=torch.float32, device=dev)
             out[self._pos_of[fam]] = lam.to(dev, torch.float32)
             return out
 
-        ep, tp = self.device_plans.get("edges"), self.device_plans.get("tets")
+        def fill(fam):
+            plan = self.device_plans.get(fam)
+            return (sw.w_fill(plan, xw)
+                    if plan is not None and self.superblocks else None)
+
         return Carry(
             xw=xw, xp=rows(state.x), vv=rows(state.v),
             lam_e=pack_lam("edges", state.edge_lambda),
             lam_t=pack_lam("tets", state.tet_lambda),
-            w_e=sw.w_fill(ep, xw) if ep is not None else None,
-            w_t=sw.w_fill(tp, xw) if tp is not None else None)
+            w_e=fill("edges"), w_t=fill("tets"))
 
     def unpack_state(self, carry: Carry, state: SimState) -> SimState:
         """Carry -> public state (``state`` supplies inv_mass and the
@@ -254,11 +315,7 @@ class SweepStep:
 
     # ---- stepping ---------------------------------------------------------
 
-    def _resolve(self, edge_compliance, volume_compliance, colliders_rt):
-        if colliders_rt is not None:
-            raise NotImplementedError(
-                "colliders on the xpbd sweep backend are not ported yet "
-                "(ROADMAP.md queue 1 item 5)")
+    def _resolve(self, edge_compliance, volume_compliance):
         # with per-constraint tables the scalars SCALE the tables
         p = self.params
         ec = ((1.0 if self._edge_c is not None else p.edge_compliance)
@@ -269,9 +326,13 @@ class SweepStep:
 
     def run_carry(self, carry: Carry, dt, n: int, edge_compliance=None,
                   volume_compliance=None, colliders_rt=None) -> Carry:
-        """n steps on the carry, in place; returns it."""
-        ec, vc = self._resolve(edge_compliance, volume_compliance,
-                               colliders_rt)
+        """n steps on the carry, in place; returns it.  colliders_rt: the
+        collider poses for these steps (same count as the make-time set)."""
+        ec, vc = self._resolve(edge_compliance, volume_compliance)
+        cols = kc.runtime_colliders(self.colliders, colliders_rt,
+                                    self.device)
+        packed = None if cols is None else kc.pack_colliders(cols,
+                                                            self.device)
         p = self.params
         ss = max(1, p.substeps)
         # scalars in float32, as the JAX step computes them
@@ -285,10 +346,11 @@ class SweepStep:
         for _ in range(int(n)):
             for _ in range(ss):
                 self._substep(carry, free, float(sdt), float(inv_dt),
-                              e_alpha, t_alpha)
+                              e_alpha, t_alpha, packed)
         return carry
 
-    def _substep(self, c: Carry, free, sdt, inv_dt, e_alpha, t_alpha):
+    def _substep(self, c: Carry, free, sdt, inv_dt, e_alpha, t_alpha,
+                 packed):
         p = self.params
         xw, xp, vv = c.xw, c.xp, c.vv
         # predict: semi-implicit Euler; pinned rows hold still
@@ -298,12 +360,14 @@ class SweepStep:
         ground_y = f32(p.ground_y)
         for _ in range(p.iterations):
             if ep is not None:
-                sw.edge_sweep(ep, xw, c.lam_e, c.w_e, e_alpha, self._e_k)
+                self._edge_sweep(ep, c, e_alpha)
             if tp is not None:
-                sw.tet_sweep(tp, xw, c.lam_t, c.w_t, t_alpha, self._t_k)
+                self._tet_sweep(tp, c, t_alpha)
             if p.ground_enabled:          # axis-aligned y clamp
                 y = xw[:, 1]
                 xw[:, 1] = torch.where(free[:, 0], y.clamp_min(ground_y), y)
+            if packed is not None:        # free rows only; dead slots w = 0
+                kc.collide(xw, packed, kc.XPBD_GROUND)
         # commit: velocity update + ground friction
         xs = xw[:, :3]
         vel = (xs - xp) * inv_dt

@@ -177,6 +177,10 @@ def test_cuda_without_card_raises(monkeypatch):
     "colliders", "bfloat16", "gather", "auto_small", "jacobi", "mesh",
     "self_collision", "colliders_rt"])
 def test_unported_features_raise(case):
+    """What is not ported raises NotImplementedError pointing at ROADMAP.md.
+    Cases ported since ("colliders" on the sweep backend, the coloured
+    "gather" backend, "auto" on a small scene) now step; a runtime collider
+    set without a make-time template ("colliders_rt") is refused."""
     topo = _topo()
     kw = {}
     params = _sweep_params()
@@ -195,10 +199,19 @@ def test_unported_features_raise(case):
         kw["mesh"] = object()
     elif case == "self_collision":
         params = params.replace(self_collision=True)
+    if case in ("colliders", "gather", "auto_small"):
+        eng = sbt.Engine(topo, params, device="cpu", **kw).run(2, DT)
+        assert np.isfinite(eng.positions()).all()
+        assert eng.backend == ("sweep" if case == "colliders" else "gather")
+        return
+    if case == "colliders_rt":
+        eng = sbt.Engine(topo, params, device="cpu")
+        with pytest.raises(ValueError, match="template"):
+            eng.step(DT, colliders_rt=sbt.Colliders.build(
+                [sbt.Colliders.sphere((0.0, 0.0, 0.0), 0.1)], device="cpu"))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng = sbt.Engine(topo, params, device="cpu", **kw)
-        if case == "colliders_rt":
-            eng.step(DT, colliders_rt=object())
+        sbt.Engine(topo, params, device="cpu", **kw)
 
 
 def test_backend_selection(monkeypatch):

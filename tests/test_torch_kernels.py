@@ -5,11 +5,12 @@ card and no jax:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Without a card the card tests skip (the CUDA kernels have no CPU mode).
-Tolerances on the card: sweeps and Jacobi passes, positions 1e-5 absolute
-(the kernel sums a vertex's contributions in CSR order, index_add_ in
-atomic order), lambdas 1e-5 relative to the largest |lambda|, Jacobi counts
-equal; collide 1e-6 (the same arithmetic, no FMA on either side); whole
-steps on the card against the CPU 1e-4 over 10 steps.
+Tolerances on the card: sweeps (both widths) and Jacobi passes,
+positions 1e-5 absolute (the kernel sums a vertex's contributions in CSR
+order, index_add_ in atomic order), lambdas 1e-5 relative to the largest
+|lambda|, Jacobi counts equal; collide 1e-6 (the same arithmetic, no FMA
+on either side); whole steps on the card against the CPU 1e-4 over 10
+steps.
 """
 
 import numpy as np
@@ -248,3 +249,105 @@ def test_jacobi_gather_transform_on_card_uses_collide_kernel(cuda_device):
         10 * params.substeps * params.iterations)
     torch.testing.assert_close(gpu.state.x.cpu(), cpu.state.x, rtol=0,
                                atol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# Legacy 128-wide sweeps and the xpbd collider stage
+# --------------------------------------------------------------------------
+
+def _legacy_plan_and_table(family, pera, device):
+    topo = sbt.meshes.tet_cube(7, 7, 7, size=1.0, center=(0.0, 0.8, 0.0))
+    V = topo.num_particles
+    rng = np.random.default_rng(1)
+    cons, rest = ((topo.edges, topo.edge_rest) if family == "edges"
+                  else (topo.tets, topo.tet_rest_vol))
+    cons = cons.astype(np.int64)
+    table = (rng.uniform(0.5, 2.0, len(cons)).astype(np.float32)
+             if pera else None)
+    dplan = ksw.to_device(tsp.build_gpu_plan(
+        tsp.pack_constraints(cons, rest), cons, scheme="scale", omega=1.0,
+        compliance=table), device)
+    nwin = -(-V // tsp.LANES)
+    xw = torch.zeros((nwin * tsp.LANES, 4))
+    xw[:V, :3] = torch.from_numpy(
+        (topo.vertices + rng.normal(0.0, 0.01, (V, 3))).astype(np.float32))
+    xw[:V, 3] = sbt.init_state(topo, device="cpu").inv_mass
+    xw[[0, 17], 3] = 0.0
+    return dplan, xw.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pera", [False, True])
+@pytest.mark.parametrize("family", ["edges", "tets"])
+def test_legacy_kernels_match_plain_on_card(family, pera, cuda_device):
+    dplan, xw = _legacy_plan_and_table(family, pera, cuda_device)
+    fn, plain = ((ksw.legacy_edge_sweep, ksw.edge_sweep_plain)
+                 if family == "edges"
+                 else (ksw.legacy_tet_sweep, ksw.tet_sweep_plain))
+    lam0 = torch.zeros(dplan.num_blocks * tsp.LANES, device=cuda_device)
+    xa, la, xb, lb = xw.clone(), lam0.clone(), xw.clone(), lam0.clone()
+    launches = fn.launches
+    fn(dplan, xa, la, 1e-2)
+    assert fn.launches == launches + 1
+    plain(dplan, xb, lb, None, 1e-2)
+    torch.cuda.synchronize()
+    assert not torch.equal(xa, xw)
+    torch.testing.assert_close(xa, xb, rtol=0, atol=1e-5)
+    torch.testing.assert_close(la, lb, rtol=0,
+                               atol=1e-5 * lb.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("superblocks", [True, False])
+def test_xpbd_sweep_colliders_on_card_match_cpu(superblocks, cuda_device):
+    """The xpbd sweep step with a box collider on the card launches the
+    collide kernel once per iteration (and, legacy, the legacy sweeps) and
+    matches the same step on the CPU: 10 steps of tet_cube(4), 1e-4."""
+    topo = sbt.meshes.tet_cube(4, 4, 4, size=0.5, center=(0.0, 0.45, 0.0))
+    params = sbt.SolverParams(substeps=2, iterations=4, xpbd_backend="sweep")
+
+    def engine(dev):
+        return sbt.Engine(topo, params, device=dev, superblocks=superblocks,
+                          colliders=sbt.Colliders.build([BOX], device=dev))
+
+    before = launch_counts()
+    gpu = engine(cuda_device).run(10, DT)
+    after = launch_counts()
+    cpu = engine("cpu").run(10, DT)
+    stages = 10 * params.substeps * params.iterations
+    assert after["collide"] == before["collide"] + stages
+    names = (("edge_sweep", "tet_sweep") if superblocks
+             else ("legacy_edge_sweep", "legacy_tet_sweep"))
+    for name in names:
+        assert after[name] == before[name] + stages, name
+    for f in ("x", "edge_lambda", "tet_lambda"):
+        torch.testing.assert_close(getattr(gpu.state, f).cpu(),
+                                   getattr(cpu.state, f), rtol=0, atol=1e-4)
+    assert gpu.positions()[:, 1].min() >= 0.2 - 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["gather", "scatter"])
+def test_xpbd_coloured_colliders_on_card_use_collide_kernel(backend,
+                                                            cuda_device):
+    """The coloured backend's collider stage is the collide kernel on the
+    card ('scatter' is an alias of 'gather'); 10 steps match the same
+    Engine on the CPU within 1e-4."""
+    topo = sbt.meshes.tet_cube(3, 3, 3, size=0.5, center=(0.0, 0.45, 0.0))
+    params = sbt.SolverParams(xpbd_backend=backend)
+
+    def engine(dev):
+        return sbt.Engine(topo, params, device=dev,
+                          colliders=sbt.Colliders.build([BOX], device=dev))
+
+    before = launch_counts()
+    gpu = engine(cuda_device)
+    assert gpu.backend == "gather"
+    gpu.run(10, DT)
+    after = launch_counts()
+    cpu = engine("cpu").run(10, DT)
+    assert after["collide"] == before["collide"] + (
+        10 * params.substeps * params.iterations)
+    for f in ("x", "edge_lambda", "tet_lambda"):
+        torch.testing.assert_close(getattr(gpu.state, f).cpu(),
+                                   getattr(cpu.state, f), rtol=0, atol=1e-4)
