@@ -42,7 +42,12 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    JacobiOracle (tests/oracle.py).
 11. Every kernel at north-star shapes against its plain PyTorch version
    on the card, from one predicted, perturbed state (the Jacobi ones with
-   a box collider and the ground); time both.
+   a box collider and the ground); time both.  Each sweep kernel also
+   runs its plan's dependency schedule on the card's Q CTAs and on one
+   CTA (plan order): 20 back-to-back launches each from the same state,
+   which must agree bit for bit; print each schedule (Q, CTAs used,
+   levels, length in blocks) and both times beside the earlier one-CTA
+   design's.
 12. One profiled window of each main path's warm Engine, and of the
    coloured step on SampleScene's body (torch.profiler: device time per
    kernel, the device's busy share of the timed window).
@@ -53,7 +58,9 @@ Every path runs with the kernels' launch counts set to 0 just before it and
 read just after.  The line before the last is {"kernels": [...]} (per
 kernel: launches on its main path, max error against its plain version,
 the kernel's device time per call (torch.profiler, so the host's launch
-time between calls is not counted), the plain version's time per call
+time between calls is not counted; should the profiler see nothing in
+three windows, CUDA events around calls enqueued on a held stream), the
+plain version's time per call
 (CUDA events over back-to-back calls, launch gaps included), the least
 time the card could take (bytes over 3.35 TB/s or operations over
 67 TFLOP/s fp32), and the time of one PyTorch call that computes the same
@@ -102,6 +109,16 @@ LAM_REL_TOL = 1e-3
 PASS_TOL = 1e-5
 COLLIDE_TOL = 1e-6
 ORACLE_TOL = 1e-4
+# held_ms: cycles the stream is first held busy while calls are enqueued
+# (~10 ms at the H100's 1.98 GHz)
+HOLD_CYCLES = 20_000_000
+# the sweep over its schedule's CTAs against one CTA: launches compared
+SCHEDULE_LAUNCHES = 20
+# each sweep kernel's device ms per call at north-star shapes in its
+# earlier design, one CTA walking the plan (NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md section 6), printed beside this run's
+ONE_CTA_DESIGN_MS = {"edge_sweep": 1.895, "tet_sweep": 2.549,
+                     "legacy_edge_sweep": 9.666, "legacy_tet_sweep": 15.198}
 
 # The in-engine tunings (softbodysim_tpu/api/scenes.py:314-318) and the
 # floor box of four_body_test (scenes.py:360).
@@ -180,7 +197,35 @@ def kernel_ms(fn, reps: int, kernels_per_call: int = 1) -> float:
             return sum(t / c for c, t in acts.values()) / 1e3
         print(f"kernel_ms: the profiler saw {acts} for {reps} calls; "
               "again", flush=True)
-    raise AssertionError(f"the profiler saw {acts} for {reps} calls")
+    ms = held_ms(fn, reps)
+    print(f"kernel_ms: the profiler saw no device activity three times; "
+          f"CUDA events on a held stream instead: {ms:.4f} ms", flush=True)
+    return ms
+
+
+def held_ms(fn, reps: int) -> float:
+    """Device time of one call from CUDA events around ``reps`` calls that
+    are all enqueued while the stream is held busy (torch.cuda._sleep), so
+    the calls run back to back and the host's launch gaps are not counted
+    (the device's own gap between kernels is).  The hold grows until the
+    device is still in it when the last call has been enqueued."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = HOLD_CYCLES
+    for _ in range(4):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        held = not start.query()
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise AssertionError("held_ms: the hold ended before the calls were "
+                         "enqueued")
 
 
 def timed_window(eng, steps: int, windows: int = 3) -> float:
@@ -303,6 +348,8 @@ def compare_sweep_kernels(sbt, ksw, topo, device) -> dict:
     ep, tp = step.device_plans["edges"], step.device_plans["tets"]
     ks = step.block_scheme["local_iters"]
     res = {}
+    one = {fam: ksw.to_device(step.gpu_plans[fam], device, queues=1)
+           for fam in ("edges", "tets")}
 
     # w_fill (both families): the index and count tables and xw read once,
     # the streamed table written; 2 (edges) or 1 (tets) flops per value
@@ -325,16 +372,17 @@ def compare_sweep_kernels(sbt, ksw, topo, device) -> dict:
     w_t = ksw.w_fill_plain(tp, xw)
 
     # per live lane and visit: ~26 flops (edge) / ~140 (tet)
-    for name, plan, wtab, k, fn, plain, lane_ops in (
-            ("edge_sweep", ep, w_e, ks[0], ksw.edge_sweep,
+    for name, fam, wtab, k, fn, plain, lane_ops in (
+            ("edge_sweep", "edges", w_e, ks[0], ksw.edge_sweep,
              ksw.edge_sweep_plain, 26),
-            ("tet_sweep", tp, w_t, ks[1], ksw.tet_sweep,
+            ("tet_sweep", "tets", w_t, ks[1], ksw.tet_sweep,
              ksw.tet_sweep_plain, 140)):
-        a = alphas["edges" if plan is ep else "tets"]
+        plan, a = step.device_plans[fam], alphas[fam]
         res[name] = compare_sweep(
             name, plan, xw,
-            lambda x, l: fn(plan, x, l, wtab, a, k),
-            lambda x, l: plain(plan, x, l, wtab, a, k), (wtab,), lane_ops, k)
+            lambda x, l, p=plan: fn(p, x, l, wtab, a, k),
+            lambda x, l: plain(plan, x, l, wtab, a, k), (wtab,), lane_ops, k,
+            one_cta=one[fam])
     return res
 
 
@@ -344,6 +392,8 @@ def compare_legacy_kernels(sbt, ksw, topo, device) -> dict:
     north-star shapes, same inputs."""
     step, xw, alphas = perturbed_table(sbt, topo, device, superblocks=False)
     res = {}
+    one = {fam: ksw.to_device(step.gpu_plans[fam], device, queues=1)
+           for fam in ("edges", "tets")}
     # per live lane ~27 flops (edge) / ~150 (tet); the plain versions
     # take seconds here, so each is timed on its one checked call
     for name, fam, fn, plain, lane_ops in (
@@ -353,25 +403,62 @@ def compare_legacy_kernels(sbt, ksw, topo, device) -> dict:
              ksw.tet_sweep_plain, 150)):
         plan, a = step.device_plans[fam], alphas[fam]
         res[name] = compare_sweep(
-            name, plan, xw, lambda x, l: fn(plan, x, l, a),
+            name, plan, xw, lambda x, l, p=plan: fn(p, x, l, a),
             lambda x, l: plain(plan, x, l, None, a), (), lane_ops,
-            plain_reps=0)
+            plain_reps=0, one_cta=one[fam])
     return res
 
 
+def check_schedule(name, plan, one_cta, xw, lam0, kernel) -> float:
+    """The sweep over its schedule's CTAs against the same kernel on one
+    CTA (plan order): SCHEDULE_LAUNCHES back-to-back launches each from the
+    same table, every launch's xw and lambda equal bit for bit.  Prints the
+    schedule; returns the one-CTA kernel's ms per call."""
+    from softbodysim_torch.kernels import sweep as ksw
+
+    st = plan.staged
+    print(f"{name} schedule: Q {st.capacity}, CTAs used {st.queues}, "
+          f"levels {st.levels}, length {st.length} blocks of "
+          f"{st.qinfo.shape[0]} non-empty ({plan.num_blocks} in the plan); "
+          f"largest block {st.max_rows} rows, {st.max_rec} record ints; "
+          f"{st.nstages} stages, {st.smem_bytes} bytes of shared memory",
+          flush=True)
+    outs = []
+    for p in (plan, one_cta):
+        x, lam = xw.clone(), lam0.clone()
+        snaps = []
+        for _ in range(SCHEDULE_LAUNCHES):
+            kernel(x, lam, p)
+            snaps.append(torch.cat([x.reshape(-1), lam]))
+        outs.append(torch.stack(snaps))
+    torch.cuda.synchronize()
+    ksw.raise_on_timeouts()
+    diff = (outs[0] - outs[1]).abs().max().item()
+    print(f"{name}: {st.queues} CTAs against one CTA over "
+          f"{SCHEDULE_LAUNCHES} launches: max |diff| {diff:.3e}, bitwise "
+          f"equal {torch.equal(outs[0], outs[1])}", flush=True)
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError(f"{name}: the schedule on {st.queues} CTAs "
+                             f"differs from one CTA ({diff})")
+    x, lam = xw.clone(), lam0.clone()
+    return kernel_ms(lambda: kernel(x, lam, one_cta), 10)
+
+
 def compare_sweep(name, plan, xw, kernel, plain, tables, lane_ops: int,
-                  k: int = 1, plain_reps: int = 2) -> dict:
+                  k: int = 1, plain_reps: int = 2, one_cta=None) -> dict:
     """One sweep kernel against its plain version from the same table and
-    zero lambdas; ``kernel`` / ``plain``: f(x, lam), in place.  Checks the
-    positions (X_TOL) and lambdas (LAM_REL_TOL), times both (the plain
-    version over ``plain_reps`` calls after a warm-up, or on its checked
-    call when 0) and returns the kernel's result row.  The bound: xw and
-    lambda read and written once, the plan and ``tables`` read once; per
-    live lane ``lane_ops`` and per CSR entry 6 flops, per visit."""
+    zero lambdas; ``kernel(x, lam, plan=plan)`` / ``plain(x, lam)``, in
+    place.  Checks the positions (X_TOL) and lambdas (LAM_REL_TOL) and the
+    schedule against ``one_cta`` (``check_schedule``), times the kernel,
+    on one CTA too, and the plain version (over ``plain_reps`` calls after
+    a warm-up, or on its checked call when 0) and returns the kernel's
+    result row.  The bound: xw and lambda read and written once, the
+    tables the kernel stages and ``tables`` read once; per live lane
+    ``lane_ops`` and per CSR entry 6 flops, per visit."""
     lam0 = torch.zeros(plan.num_blocks * plan.width, device=xw.device)
     xa, la = xw.clone(), lam0.clone()
     xb, lb = xw.clone(), lam0.clone()
-    kernel(xa, la)
+    kernel(xa, la, plan)
     if plain_reps:
         plain(xb, lb)
     else:
@@ -392,14 +479,20 @@ def compare_sweep(name, plan, xw, kernel, plain, tables, lane_ops: int,
         raise AssertionError(f"{name}: lambdas disagree ({el})")
     if not moved > 0.0:
         raise AssertionError(f"{name}: the sweep moved nothing")
+    one_ms = check_schedule(name, plan, one_cta, xw, lam0, kernel)
     ms = kernel_ms(lambda: kernel(xa, la), 10)
+    print(f"{name}: {ms:.4f} ms on {plan.staged.queues} CTAs, {one_ms:.4f} "
+          f"ms on one CTA; the earlier one-CTA design "
+          f"{ONE_CTA_DESIGN_MS[name]} ms",
+          flush=True)
     if plain_reps:
         plain_ms = events_ms(lambda: plain(xb, lb), plain_reps)
     live = int((plan.verts[:, 0] >= 0).sum().item())
+    st = plan.staged
     nb = (2 * nbytes(xw, lam0)
-          + nbytes(plan.verts, plan.rest, plan.scale, plan.atab, *tables,
-                   plan.blk_vptr, plan.cvert, plan.cptr, plan.centry))
-    ops = k * (lane_ops * live + 6 * plan.centry.numel())
+          + nbytes(st.lrow, plan.rest, plan.scale, plan.atab, *tables,
+                   st.rec, st.qinfo, st.qptr))
+    ops = k * (lane_ops * live + 6 * plan.lane.numel())
     return result(max(ex, el), ms, plain_ms, nb, ops)
 
 
@@ -871,6 +964,7 @@ def main() -> int:
     print(f"xpbd legacy 128-wide tet_cube(47) (8 substeps, 1 iteration, "
           f"box): {l_ms:.3f} ms/step, {1e3 / l_ms:.2f} steps/s on {card}",
           flush=True)
+    ksw.raise_on_timeouts()
     xpbd_reference_check(sbt, device, superblocks=True)
     xpbd_reference_check(sbt, device, superblocks=False)
     xpbd_collider_check(sbt, device)
@@ -897,6 +991,7 @@ def main() -> int:
         print(f"profile of {label}: {time.perf_counter() - t0:.2f} s",
               flush=True)
 
+    ksw.raise_on_timeouts()
     src = "softbodysim_torch/kernels/csrc/"
     rows = (
         ("w_fill", "sweep.cu", "softbodysim_tpu/kernels/sweep.py:1118",

@@ -110,11 +110,9 @@ def load() -> ctypes.CDLL:
     signatures = {
         # sweep.cu
         "sbs_w_fill": [p, p, p, p, i, i, p],
-        "sbs_edge_sweep": [p, p, p, p, p, p, p, p, p, p, p, i, f, i, p],
-        "sbs_tet_sweep": [p, p, p, p, p, p, p, p, p, p, p, i, f, i, i, p],
-        # sweep.cu, the legacy 128-wide instantiations
-        "sbs_legacy_edge_sweep": [p, p, p, p, p, p, p, p, p, p, i, f, p],
-        "sbs_legacy_tet_sweep": [p, p, p, p, p, p, p, p, p, p, i, f, p],
+        "sbs_sweep_ctas": [i, i, i, i, p, p],
+        "sbs_sweep": [i, p, p],
+        "sbs_sweep_timeouts": [],
         # jacobi.cu
         "sbs_jacobi_edge_pass": [p, p, p, p, p, p, i, f, f, p, p],
         "sbs_jacobi_tet_pass": [p, p, p, p, p, p, p, p, i, i, f, f, p, p],

@@ -19,6 +19,12 @@ launches, and nothing else.  The sweeps update ``xw`` and ``lam`` in place
 Tables (see ``sweep_plan.GpuPlan``): ``xw`` (Vpad, 4) f32 rows x, y, z,
 inverse mass in layout order; ``lam`` (NB*width,) f32 in packed order
 (width 1024 for the super-block sweeps, 128 for the legacy sweeps).
+
+On a CUDA device a sweep runs the plan's blocks as a dependency schedule
+over Q persistent CTAs (``sweep_plan.stage_plan``; Q from the card's
+occupancy unless ``to_device`` is given ``queues``), in the plan's exact
+block order: bit for bit what one CTA walking the plan gives.  Launches of
+one plan must stay on one stream (they share its flag buffer).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import numpy as np
 import torch
 
 from ..collide.primitives import cross3
+from . import sweep_plan as sp
 from .sweep_plan import BLOCK, LANES, GpuPlan
 
 # guard constants as f32-exact doubles (compared in fp32 either way)
@@ -38,8 +45,50 @@ EPS_WSUM = float(np.float32(1e-20))
 SIXTH = float(np.float32(1.0 / 6.0))
 
 
+# kernel kind of sweep.cu's sbs_sweep, by (arity, block width)
+_KIND = {(2, BLOCK): 0, (4, BLOCK): 1, (2, LANES): 2, (4, LANES): 3}
+
+
+def _tensor(a, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(device)
+
+
+class Staged:
+    """What the CUDA sweep kernels read besides the per-lane tables: a
+    plan's schedule on the card (``sweep_plan.StagedPlan``), its flag
+    buffer and the launch epoch.
+
+    capacity: Q, the queues the schedule was built for; queues: the CTAs
+    it uses (non-empty queues); levels, length: the schedule's dependency
+    levels and length in blocks; nstages, smem_bytes: shared-memory stages
+    and bytes per CTA."""
+
+    def __init__(self, plan: GpuPlan, device, capacity: int, nstages: int,
+                 smem_bytes: int):
+        st = sp.stage_plan(plan, capacity)
+        sched = st.schedule
+
+        def t(a, dtype):
+            return _tensor(a, dtype, device)
+
+        self.capacity, self.nstages = int(capacity), int(nstages)
+        self.smem_bytes = int(smem_bytes)
+        self.queues, self.levels = sched.queues, sched.levels
+        self.length = sched.length
+        self.max_rows, self.max_rec = st.max_rows, st.max_rec
+        self.lrow = t(st.lrow, torch.int16)
+        self.rec = t(st.rec, torch.int32)
+        self.qinfo = t(st.qinfo, torch.int32)
+        self.qptr = t(sched.qptr, torch.int32)
+        # per block the epoch of its last release; [NB] the abort word
+        self.flags = torch.zeros(plan.num_blocks + 1, dtype=torch.int32,
+                                 device=device)
+        self.epoch = 0
+
+
 class DevicePlan(NamedTuple):
-    """A GpuPlan's tables on one device (int32 / f32, contiguous)."""
+    """A GpuPlan's tables on one device (int32 / f32, contiguous); on a
+    CUDA device also the kernels' schedule (``staged``)."""
 
     arity: int
     num_blocks: int
@@ -50,24 +99,56 @@ class DevicePlan(NamedTuple):
     scale: torch.Tensor
     counts: Optional[torch.Tensor]
     atab: Optional[torch.Tensor]
-    blk_vptr: torch.Tensor
+    # plain version only: the CSR rows' vertices, per entry its row / lane /
+    # role, and the host copies of the CSR offsets used to slice one block
+    # (the kernels read the CSR from ``staged``)
     cvert: torch.Tensor
-    cptr: torch.Tensor
-    centry: torch.Tensor
-    # plain version only: CSR row / lane / role of every entry, and the
-    # host copies of the CSR offsets used to slice one block
     cseg: torch.Tensor
     lane: torch.Tensor
     role: torch.Tensor
     vptr_host: np.ndarray
     cptr_host: np.ndarray
+    staged: Optional[Staged] = None
 
 
-def to_device(plan: GpuPlan, device) -> DevicePlan:
+def card_queues(plan: GpuPlan) -> tuple:
+    """(Q, stages, bytes): how many CTAs of the plan's sweep kernel the
+    current CUDA device holds at once (SMs x CTAs per SM, the occupancy
+    API), the shared-memory stages per CTA that fit (2, else 1) and a
+    CTA's shared memory."""
+    rows, rec = sp.stage_bounds(plan)
+    nst, smem = ctypes.c_int(0), ctypes.c_int(0)
+    q = _lib().sbs_sweep_ctas(_KIND[(plan.arity, plan.width)],
+                              int(plan.atab is not None), rows, rec,
+                              ctypes.byref(nst), ctypes.byref(smem))
+    if q < 0:
+        raise RuntimeError(f"sbs_sweep_ctas: CUDA error {-q}")
+    if q == 0:
+        raise ValueError(f"a block of this plan ({rows} rows, {rec} record "
+                         "ints) does not fit in one CTA's shared memory")
+    return q, nst.value, smem.value
+
+
+def to_device(plan: GpuPlan, device, queues: Optional[int] = None
+              ) -> DevicePlan:
+    """The plan's tables on ``device``.  On a CUDA device, also its
+    schedule over ``queues`` persistent CTAs: by default as many as the
+    card holds at once; fewer (1 is plan order on one CTA) for tests."""
+    device = torch.device(device)
+
     def t(a, dtype):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(
-            device)
+        return _tensor(a, dtype, device)
 
+    staged = None
+    if device.type == "cuda":
+        with torch.cuda.device(device):
+            q, nst, smem = card_queues(plan)
+        if queues is not None:
+            if not 1 <= queues <= q:
+                raise ValueError(f"queues={queues}: the card holds 1..{q} "
+                                 "CTAs of this sweep at once")
+            q = queues
+        staged = Staged(plan, device, q, nst, smem)
     i32, f32, i64 = torch.int32, torch.float32, torch.int64
     return DevicePlan(
         arity=plan.arity, num_blocks=plan.num_blocks, width=plan.width,
@@ -76,14 +157,13 @@ def to_device(plan: GpuPlan, device) -> DevicePlan:
         scale=t(plan.scale, f32),
         counts=None if plan.counts is None else t(plan.counts, f32),
         atab=None if plan.atab is None else t(plan.atab, f32),
-        blk_vptr=t(plan.blk_vptr, i32), cvert=t(plan.cvert, i32),
-        cptr=t(plan.cptr, i32), centry=t(plan.centry, i32),
+        cvert=t(plan.cvert, i32),
         cseg=t(np.repeat(np.arange(len(plan.cvert)), np.diff(plan.cptr)),
                i64),
         lane=t(plan.centry >> 2, i64),
         role=t(plan.centry & 3, i64),
         vptr_host=plan.blk_vptr.astype(np.int64),
-        cptr_host=plan.cptr.astype(np.int64))
+        cptr_host=plan.cptr.astype(np.int64), staged=staged)
 
 
 # --------------------------------------------------------------------------
@@ -119,13 +199,8 @@ def _check_plan(plan: DevicePlan, device, width: int = BLOCK) -> None:
                device)
     if plan.atab is not None:
         _check(plan.atab, "plan.atab", torch.float32, (n,), device)
-    _check(plan.blk_vptr, "plan.blk_vptr", torch.int32,
-           (plan.num_blocks + 1,), device)
-    u = plan.cvert.shape[0]
-    _check(plan.cvert, "plan.cvert", torch.int32, (u,), device)
-    _check(plan.cptr, "plan.cptr", torch.int32, (u + 1,), device)
-    _check(plan.centry, "plan.centry", torch.int32,
-           (plan.centry.shape[0],), device)
+    _check(plan.cvert, "plan.cvert", torch.int32, (plan.cvert.shape[0],),
+           device)
 
 
 def _check_xw(xw: torch.Tensor) -> torch.device:
@@ -157,6 +232,61 @@ def _lib():
     from ._build import load
 
     return load()
+
+
+class _SweepArgs(ctypes.Structure):
+    """sweep.cu's SweepArgs."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "xw", "lam", "lrow", "rest", "scale", "atab", "wt", "rec", "qinfo",
+        "qptr", "flags", "timeouts")]
+        + [(n, ctypes.c_int) for n in (
+            "nqueues", "nblocks", "max_rows", "max_rec", "nstages", "epoch")]
+        + [("alpha", ctypes.c_float), ("local_iters", ctypes.c_int),
+           ("ms", ctypes.c_int)])
+
+
+def _addr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def raise_on_timeouts() -> None:
+    """Raise if a sweep launch aborted on a wait of more than 2 s since the
+    last check (the kernels report it in mapped host memory; the sweep
+    wrappers check before every launch, a caller after a synchronize)."""
+    if _lib().sbs_sweep_timeouts():
+        raise RuntimeError("a CUDA sweep launch timed out waiting for a "
+                           "block and aborted: its results are not valid")
+
+
+def _launch_sweep(name, plan: DevicePlan, xw, lam, wt, alpha, local_iters,
+                  ms) -> None:
+    """One cooperative launch of the plan's sweep kernel over its
+    schedule's CTAs."""
+    st = plan.staged
+    if st is None:
+        raise ValueError(f"{name}: the plan has no kernel schedule (make it "
+                         "with to_device on the CUDA device)")
+    raise_on_timeouts()
+    # A block's flag holds the epoch of the launch that last released it,
+    # so flags are never reset; the epoch is a host counter, which a CUDA
+    # graph capturing this launch would freeze (the sweeps are not
+    # captured).  It runs through the int32 range; the kernel compares
+    # differences.
+    st.epoch = (st.epoch + 1 + 2**31) % 2**32 - 2**31
+    args = _SweepArgs(
+        xw=xw.data_ptr(), lam=lam.data_ptr(), lrow=st.lrow.data_ptr(),
+        rest=plan.rest.data_ptr(), scale=plan.scale.data_ptr(),
+        atab=_addr(plan.atab), wt=_addr(wt), rec=st.rec.data_ptr(),
+        qinfo=st.qinfo.data_ptr(), qptr=st.qptr.data_ptr(),
+        flags=st.flags.data_ptr(), timeouts=None, nqueues=st.queues,
+        nblocks=plan.num_blocks, max_rows=st.max_rows, max_rec=st.max_rec,
+        nstages=st.nstages, epoch=st.epoch, alpha=float(alpha),
+        local_iters=int(local_iters), ms=int(ms))
+    rc = _lib().sbs_sweep(_KIND[(plan.arity, plan.width)],
+                          ctypes.c_void_p(ctypes.addressof(args)),
+                          _stream(xw.device))
+    _raise_on(rc, name)
 
 
 # --------------------------------------------------------------------------
@@ -213,15 +343,20 @@ def _apply(xw, cv, seg, contrib):
     xw[cv, :3] = xw[cv, :3] + acc
 
 
+def _blocks(plan: DevicePlan, order):
+    return range(plan.num_blocks) if order is None else order
+
+
 def edge_sweep_plain(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
                      wsum: Optional[torch.Tensor], alpha: float,
-                     local_iters: int = 1) -> None:
+                     local_iters: int = 1, order=None) -> None:
     """On a legacy 128-wide plan ``wsum`` is None: w0 + w1 come from xw and
-    the normal is d / |d|, as in the legacy kernel."""
+    the normal is d / |d|, as in the legacy kernel.  ``order``: the blocks
+    to run, in turn (default: every block in plan order)."""
     legacy = plan.width == LANES
     W = plan.width
     verts = plan.verts.long()
-    for b in range(plan.num_blocks):
+    for b in _blocks(plan, order):
         sl = slice(b * W, (b + 1) * W)
         v = verts[sl]
         live = v[:, 0] >= 0
@@ -254,14 +389,14 @@ def edge_sweep_plain(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
 
 def tet_sweep_plain(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
                     wtab: Optional[torch.Tensor], alpha: float,
-                    local_iters: int = 1) -> None:
+                    local_iters: int = 1, order=None) -> None:
     """On a legacy 128-wide plan ``wtab`` is None: the w_r come from xw and
     the volume is (cross . e) times the f32 sixth, as in the legacy
-    kernel."""
+    kernel.  ``order`` as for ``edge_sweep_plain``."""
     legacy = plan.width == LANES
     W = plan.width
     verts = plan.verts.long()
-    for b in range(plan.num_blocks):
+    for b in _blocks(plan, order):
         sl = slice(b * W, (b + 1) * W)
         v = verts[sl]
         live = v[:, 0] >= 0
@@ -325,12 +460,7 @@ def edge_sweep(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
     dev = _check_sweep(plan, xw, lam, wsum, (plan.num_blocks * BLOCK,))
     if dev.type == "cpu":
         return edge_sweep_plain(plan, xw, lam, wsum, alpha, local_iters)
-    rc = _lib().sbs_edge_sweep(
-        _ptr(xw), _ptr(lam), _ptr(plan.verts), _ptr(plan.rest),
-        _ptr(plan.scale), _ptr(plan.atab), _ptr(wsum), _ptr(plan.blk_vptr),
-        _ptr(plan.cvert), _ptr(plan.cptr), _ptr(plan.centry),
-        plan.num_blocks, float(alpha), int(local_iters), _stream(dev))
-    _raise_on(rc, "edge_sweep")
+    _launch_sweep("edge_sweep", plan, xw, lam, wsum, alpha, local_iters, 0)
     edge_sweep.launches += 1
 
 
@@ -346,13 +476,8 @@ def tet_sweep(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
     dev = _check_sweep(plan, xw, lam, wtab, (plan.num_blocks * BLOCK, 4))
     if dev.type == "cpu":
         return tet_sweep_plain(plan, xw, lam, wtab, alpha, local_iters)
-    rc = _lib().sbs_tet_sweep(
-        _ptr(xw), _ptr(lam), _ptr(plan.verts), _ptr(plan.rest),
-        _ptr(plan.scale), _ptr(plan.atab), _ptr(wtab), _ptr(plan.blk_vptr),
-        _ptr(plan.cvert), _ptr(plan.cptr), _ptr(plan.centry),
-        plan.num_blocks, float(alpha), int(local_iters), int(plan.split),
-        _stream(dev))
-    _raise_on(rc, "tet_sweep")
+    _launch_sweep("tet_sweep", plan, xw, lam, wtab, alpha, local_iters,
+                  int(plan.split))
     tet_sweep.launches += 1
 
 
@@ -383,12 +508,7 @@ def legacy_edge_sweep(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
     dev = _check_legacy(plan, xw, lam, 2, "legacy_edge_sweep")
     if dev.type == "cpu":
         return edge_sweep_plain(plan, xw, lam, None, alpha)
-    rc = _lib().sbs_legacy_edge_sweep(
-        _ptr(xw), _ptr(lam), _ptr(plan.verts), _ptr(plan.rest),
-        _ptr(plan.scale), _ptr(plan.atab), _ptr(plan.blk_vptr),
-        _ptr(plan.cvert), _ptr(plan.cptr), _ptr(plan.centry),
-        plan.num_blocks, float(alpha), _stream(dev))
-    _raise_on(rc, "legacy_edge_sweep")
+    _launch_sweep("legacy_edge_sweep", plan, xw, lam, None, alpha, 1, 0)
     legacy_edge_sweep.launches += 1
 
 
@@ -402,12 +522,7 @@ def legacy_tet_sweep(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
     dev = _check_legacy(plan, xw, lam, 4, "legacy_tet_sweep")
     if dev.type == "cpu":
         return tet_sweep_plain(plan, xw, lam, None, alpha)
-    rc = _lib().sbs_legacy_tet_sweep(
-        _ptr(xw), _ptr(lam), _ptr(plan.verts), _ptr(plan.rest),
-        _ptr(plan.scale), _ptr(plan.atab), _ptr(plan.blk_vptr),
-        _ptr(plan.cvert), _ptr(plan.cptr), _ptr(plan.centry),
-        plan.num_blocks, float(alpha), _stream(dev))
-    _raise_on(rc, "legacy_tet_sweep")
+    _launch_sweep("legacy_tet_sweep", plan, xw, lam, None, alpha, 1, 0)
     legacy_tet_sweep.launches += 1
 
 

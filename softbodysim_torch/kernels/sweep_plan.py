@@ -20,6 +20,12 @@ dlambda scale, the w-fill count table (super-blocks only), and a per-block
 vertex CSR that fixes the order in which each vertex's corrections are
 summed.  The TPU-only tables (window slots, lane-relative ids, inverse
 scatter maps, ragged profiles) are not carried to the device.
+
+``stage_plan`` deals a GpuPlan's blocks to the persistent CTAs of the
+CUDA sweeps (``build_schedule``: each CTA walks its blocks in plan order
+and first waits for the predecessors it shares a vertex with on other
+CTAs, so the result is plan order's, bit for bit) and lays each block's
+slice of the plan out for bulk copies into shared memory.
 """
 
 from __future__ import annotations
@@ -714,3 +720,240 @@ def build_gpu_plan(plan, cons_layout: np.ndarray, *,
         cptr=cptr.astype(np.int32),
         centry=((p_idx % width) * 4 + r_idx)[order].astype(np.int32),
         pos_of=plan.pos_of.copy())
+
+
+# --------------------------------------------------------------------------
+# The dependency schedule and the staged tables of the CUDA sweep kernels
+# --------------------------------------------------------------------------
+
+# The list schedule's cost of handing a dependency from one CTA to another,
+# in blocks (a release, a poll and an L2 round trip, against a block's own
+# chain of a few such trips).
+HANDOFF = 0.5
+# ints in the header of a block's staged record: block, rows, entries,
+# waits, release, three pad
+REC_HEADER = 8
+
+
+def _pad4(n):
+    return -(-n // 4) * 4
+
+
+def block_preds(plan: GpuPlan) -> Tuple[np.ndarray, np.ndarray]:
+    """(pptr, pred): the predecessors of block b are pred[pptr[b]:pptr[b+1]]
+    -- for each of its vertices the last earlier block that touches it --
+    unique and ascending.  Blocks that share no vertex commute exactly, so
+    running b after its predecessors gives it the inputs of plan order."""
+    nb = plan.num_blocks
+    blk = np.repeat(np.arange(nb, dtype=np.int64), np.diff(plan.blk_vptr))
+    v = plan.cvert.astype(np.int64)
+    o = np.lexsort((blk, v))          # by vertex, then block
+    vs, bs = v[o], blk[o]
+    same = vs[1:] == vs[:-1]
+    key = np.unique(bs[1:][same] * nb + bs[:-1][same])
+    succ, pred = key // nb, key % nb
+    return np.searchsorted(succ, np.arange(nb + 1)), pred
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """A plan's non-empty blocks on persistent CTAs ("queues"), each
+    queue in plan order.
+
+    qptr    : (G+1,) int32 -- queue q runs positions qptr[q]:qptr[q+1]
+    qblk    : (n,) int32   -- position -> block id, each non-empty block once
+    wptr    : (n+1,) int32 -- position i first waits for the blocks
+    wait    : int32           wait[wptr[i]:wptr[i+1]], on other queues
+    release : (NB,) bool   -- a block another queue waits for
+    levels  : longest chain of dependent blocks
+    length  : the list schedule's length in blocks (HANDOFF per hand-off)
+    """
+
+    qptr: np.ndarray
+    qblk: np.ndarray
+    wptr: np.ndarray
+    wait: np.ndarray
+    release: np.ndarray
+    levels: int
+    length: float
+
+    @property
+    def queues(self) -> int:
+        return len(self.qptr) - 1
+
+
+def build_schedule(plan: GpuPlan, queues: int) -> Schedule:
+    """Greedy list schedule of the plan's blocks, taken in plan order, onto
+    at most ``queues`` queues (unit time per block): a block starts on the
+    queue where it can start first, preferring the queue of its latest
+    predecessor (no hand-off), then a queue that is already free (best
+    fit), then the queue that frees first.  Its waits are its predecessors
+    on other queues that the queue does not already know complete (vector
+    clocks over earlier waits), the latest per queue.  queues=1 is plan
+    order with no waits."""
+    if queues < 1:
+        raise ValueError(f"queues must be >= 1, got {queues}")
+    nb = plan.num_blocks
+    pptr, pred = block_preds(plan)
+    live = np.flatnonzero(np.diff(plan.blk_vptr) > 0)
+    nq = min(int(queues), max(len(live), 1))
+    free = np.zeros(nq)
+    end = np.zeros(nb)
+    level = np.zeros(nb, np.int64)
+    qof = np.full(nb, -1, np.int64)
+    lists = [[] for _ in range(nq)]
+    for b in live.tolist():
+        ps = pred[pptr[b]:pptr[b + 1]]
+        best_q, best_s = -1, np.inf
+        base = 0.0
+        if len(ps):
+            pe, pq = end[ps], qof[ps]
+            level[b] = level[ps].max() + 1
+            base = pe.max() + HANDOFF
+            for q in dict.fromkeys(pq[np.argsort(-pe, kind="stable")]
+                                   .tolist()):
+                on = pq == q
+                r = pe[on].max()
+                if not on.all():
+                    r = max(r, pe[~on].max() + HANDOFF)
+                s = max(free[q], r)
+                if s < best_s:
+                    best_q, best_s = q, s
+            f = free.copy()
+            f[pq] = np.inf
+        else:
+            level[b] = 1
+            f = free
+        ok = f <= base
+        if ok.any():
+            q, s = int(np.argmax(np.where(ok, f, -1.0))), base
+        else:
+            q = int(np.argmin(f))
+            s = f[q]
+        if s < best_s:
+            best_q, best_s = q, s
+        qof[b] = best_q
+        end[b] = free[best_q] = best_s + 1.0
+        lists[best_q].append(b)
+
+    lists = [lst for lst in lists if lst]
+    g = len(lists)
+    gid = np.full(nq, -1, np.int64)
+    gid[[qof[lst[0]] for lst in lists]] = np.arange(g)
+    qof = np.where(qof >= 0, gid[np.maximum(qof, 0)], -1)
+    pos = np.zeros(nb, np.int64)
+    for lst in lists:
+        pos[lst] = np.arange(len(lst))
+    known = np.full((g, g), -1, np.int64)
+    vc_done = np.zeros((nb, g), np.int64)
+    waits = {}
+    release = np.zeros(nb, bool)
+    for b in live.tolist():
+        q = qof[b]
+        vc = known[q].copy()
+        ws = []
+        for p in pred[pptr[b]:pptr[b + 1]][::-1].tolist():   # latest first
+            qp = qof[p]
+            if qp != q and pos[p] > vc[qp]:
+                ws.append(p)
+                np.maximum(vc, vc_done[p], out=vc)
+                release[p] = True
+        vc[q] = pos[b]
+        vc_done[b] = known[q] = vc
+        waits[b] = sorted(ws)
+
+    qblk = np.array([b for lst in lists for b in lst], np.int64)
+    nw = np.array([len(waits[b]) for b in qblk.tolist()], np.int64)
+    wait = [w for b in qblk.tolist() for w in waits[b]]
+    return Schedule(
+        qptr=np.concatenate([[0], np.cumsum([len(lst) for lst in lists])])
+        .astype(np.int32),
+        qblk=qblk.astype(np.int32),
+        wptr=np.concatenate([[0], np.cumsum(nw)]).astype(np.int32),
+        wait=np.asarray(wait, np.int32),
+        release=release,
+        levels=int(level.max(initial=0)),
+        length=float(end.max(initial=0.0)))
+
+
+def local_rows(plan: GpuPlan) -> np.ndarray:
+    """(NB*width, arity) int16 block-local CSR row of every live (lane,
+    role), -1 on pad lanes: cvert[blk_vptr[b] + lrow[p, r]] == verts[p, r]
+    for p in block b."""
+    nb, width = plan.num_blocks, plan.width
+    row_blk = np.repeat(np.arange(nb, dtype=np.int64), np.diff(plan.blk_vptr))
+    ent_row = np.repeat(np.arange(len(plan.cvert), dtype=np.int64),
+                        np.diff(plan.cptr))
+    blk = row_blk[ent_row]
+    lrow = np.full((nb * width, plan.arity), -1, np.int16)
+    lrow[blk * width + (plan.centry >> 2), plan.centry & 3] = (
+        ent_row - plan.blk_vptr[blk])
+    return lrow
+
+
+def stage_bounds(plan: GpuPlan) -> Tuple[int, int]:
+    """(rows, record ints) of the plan's largest block: what one CTA stages
+    in shared memory, whatever the schedule (a record lists at most all of
+    its block's predecessors as waits)."""
+    pptr, _ = block_preds(plan)
+    rows = np.diff(plan.blk_vptr).astype(np.int64)
+    ents = np.diff(plan.cptr[plan.blk_vptr]).astype(np.int64)
+    rec = (REC_HEADER + _pad4(np.diff(pptr)) + _pad4(rows) + _pad4(rows + 1)
+           + _pad4(ents))
+    return int(rows.max(initial=0)), int(rec.max(initial=REC_HEADER))
+
+
+@dataclasses.dataclass(frozen=True)
+class StagedPlan:
+    """What the CUDA sweep kernels read besides the per-lane tables.
+
+    schedule: the Schedule
+    lrow    : (NB*width, arity) int16 -- ``local_rows``
+    rec     : (R,) int32 -- per queue position one record, 16-byte aligned
+              (a multiple of 4 ints), each part padded to 4 ints: header
+              (block, rows U, entries E, waits W, release, 0, 0, 0), the W
+              wait block ids, the block's CSR rows (cvert), the rows' entry
+              offsets from 0 to E (U+1), the entries (lane*4 + role)
+    qinfo   : (n, 4) int32 -- per queue position: block, record offset and
+              record length in ints, 0
+    max_rows, max_rec: ``stage_bounds``
+    """
+
+    schedule: Schedule
+    lrow: np.ndarray
+    rec: np.ndarray
+    qinfo: np.ndarray
+    max_rows: int
+    max_rec: int
+
+
+def stage_plan(plan: GpuPlan, queues: int) -> StagedPlan:
+    """The schedule on ``queues`` queues and the tables the kernels stage
+    one block at a time (contiguous slices, for 1-D bulk copies)."""
+    sched = build_schedule(plan, queues)
+    parts, qinfo, off = [], [], 0
+    vptr, cptr = plan.blk_vptr, plan.cptr
+    for i, b in enumerate(sched.qblk.tolist()):
+        u0, u1 = int(vptr[b]), int(vptr[b + 1])
+        e0, e1 = int(cptr[u0]), int(cptr[u1])
+        nu, ne = u1 - u0, e1 - e0
+        w = sched.wait[sched.wptr[i]:sched.wptr[i + 1]]
+        ow = REC_HEADER
+        ov = ow + _pad4(len(w))
+        orp = ov + _pad4(nu)
+        oe = orp + _pad4(nu + 1)
+        rec = np.zeros(oe + _pad4(ne), np.int32)
+        rec[:5] = (b, nu, ne, len(w), int(sched.release[b]))
+        rec[ow:ow + len(w)] = w
+        rec[ov:ov + nu] = plan.cvert[u0:u1]
+        rec[orp:orp + nu + 1] = cptr[u0:u1 + 1] - e0
+        rec[oe:oe + ne] = plan.centry[e0:e1]
+        parts.append(rec)
+        qinfo.append((b, off, len(rec), 0))
+        off += len(rec)
+    max_rows, max_rec = stage_bounds(plan)
+    return StagedPlan(
+        schedule=sched, lrow=local_rows(plan),
+        rec=(np.concatenate(parts) if parts else np.zeros(0, np.int32)),
+        qinfo=np.asarray(qinfo, np.int32).reshape(-1, 4),
+        max_rows=max_rows, max_rec=max_rec)

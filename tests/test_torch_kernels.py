@@ -5,12 +5,13 @@ card and no jax:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Without a card the card tests skip (the CUDA kernels have no CPU mode).
-Tolerances on the card: sweeps (both widths) and Jacobi passes,
-positions 1e-5 absolute (the kernel sums a vertex's contributions in CSR
-order, index_add_ in atomic order), lambdas 1e-5 relative to the largest
-|lambda|, Jacobi counts equal; collide 1e-6 (the same arithmetic, no FMA
-on either side); whole steps on the card against the CPU 1e-4 over 10
-steps.
+A sweep over its dependency schedule on many CTAs equals the same kernel
+on one CTA bit for bit.  Tolerances on the card: sweeps (both widths) and
+Jacobi passes, positions 1e-5 absolute (the kernel sums a vertex's
+contributions in CSR order, index_add_ in atomic order), lambdas 1e-5
+relative to the largest |lambda|, Jacobi counts equal; collide 1e-6 (the
+same arithmetic, no FMA on either side); whole steps on the card against
+the CPU 1e-4 over 10 steps.
 """
 
 import numpy as np
@@ -117,6 +118,73 @@ def test_wrappers_validate_inputs():
     ksw.edge_sweep(dplan, xw, lam_p, wtab, 0.0)   # plain version on the CPU
     assert launch_counts() == counts
     assert lam_p.abs().max() > 0
+
+
+# the schedule variants: (superblocks, scheme, omega, local_iters, a
+# per-constraint compliance table)
+SCHEDULES = {"super": (True, "split", None, 1, False),
+             "super_k2_table": (True, "split", None, 2, True),
+             "legacy": (False, "scale", 1.0, 1, False),
+             "legacy_table": (False, "scale", 1.0, 1, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(SCHEDULES))
+@pytest.mark.parametrize("family", ["edges", "tets"])
+def test_schedule_matches_one_cta_bitwise(family, variant, cuda_device):
+    """A sweep kernel over its plan's dependency schedule on the card's Q
+    CTAs against the same kernel on one CTA (plan order): 20 back-to-back
+    launches each from the same state, every launch's positions and
+    lambdas equal bit for bit (a race would show as a difference)."""
+    superblocks, sch, omega, k, table = SCHEDULES[variant]
+    topo = sbt.meshes.tet_cube(20, 20, 20, size=1.0, center=(0.0, 0.8, 0.0))
+    V = topo.num_particles
+    rng = np.random.default_rng(2)
+    cons, rest, lcap = ((topo.edges, topo.edge_rest, 2) if family == "edges"
+                        else (topo.tets, topo.tet_rest_vol, 3))
+    cons = cons.astype(np.int64)
+    if omega is None:
+        omega = 1.5 if family == "edges" else 2.2
+    plan = (tsp.pack_superblocks(cons, rest, layer_cap=lcap) if superblocks
+            else tsp.pack_constraints(cons, rest))
+    g = tsp.build_gpu_plan(
+        plan, cons, scheme=sch, omega=omega,
+        compliance=(rng.uniform(0.5, 2.0, len(cons)).astype(np.float32)
+                    if table else None))
+    many = ksw.to_device(g, cuda_device)
+    one = ksw.to_device(g, cuda_device, queues=1)
+    assert many.staged.queues > 1 and one.staged.queues == 1
+    xw = torch.zeros((-(-V // tsp.LANES) * tsp.LANES, 4))
+    xw[:V, :3] = torch.from_numpy(
+        (topo.vertices + rng.normal(0.0, 0.01, (V, 3))).astype(np.float32))
+    xw[:V, 3] = sbt.init_state(topo, device="cpu").inv_mass
+    xw = xw.to(cuda_device)
+    width = g.width
+    if superblocks:
+        wt = ksw.w_fill(many, xw)
+        fn = ksw.edge_sweep if family == "edges" else ksw.tet_sweep
+
+        def sweep(p, x, lam):
+            fn(p, x, lam, wt, 1e-2, k)
+    else:
+        fn = (ksw.legacy_edge_sweep if family == "edges"
+              else ksw.legacy_tet_sweep)
+
+        def sweep(p, x, lam):
+            fn(p, x, lam, 1e-2)
+    outs = []
+    for p in (many, one):
+        x = xw.clone()
+        lam = torch.zeros(g.num_blocks * width, device=cuda_device)
+        snaps = []
+        for _ in range(20):
+            sweep(p, x, lam)
+            snaps.append(torch.cat([x.reshape(-1), lam]))
+        outs.append(torch.stack(snaps))
+    torch.cuda.synchronize()
+    ksw.raise_on_timeouts()
+    assert not torch.equal(outs[1][0][:xw.numel()], xw.reshape(-1))
+    assert torch.equal(outs[0], outs[1])
 
 
 # --------------------------------------------------------------------------
