@@ -16,8 +16,12 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    path's ms/step).
 4. Jacobi main path on the same cube: Engine(jacobi, the in-engine
    tunings, a floor box collider, device="cuda") with
-   jacobi_backend="auto" -> the pass backend; run(32) then step(); check
-   and time three warm 20-step windows.
+   jacobi_backend="auto" -> the pass backend, one CUDA graph replay per
+   substep; run(32) then step(); check (a graph was captured) and time
+   three warm 20-step windows; then, as diagnostics, three windows of the
+   same step run eagerly (kernel by kernel) on a copy of its state, and
+   three of Engine.step one step at a time with stiffness and omega
+   overrides that change every step (no new graph may be captured).
 5. XPBD legacy path on the same cube: Engine(xpbd, 8 substeps, 1
    iteration, superblocks=False, a box just under the body) -> the sweep
    backend on the 128-wide legacy plans (SweepStep, carry API); print the
@@ -42,7 +46,10 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    JacobiOracle (tests/oracle.py).
 11. Every kernel at north-star shapes against its plain PyTorch version
    on the card, from one predicted, perturbed state (the Jacobi ones with
-   a box collider and the ground); time both.  Each sweep kernel also
+   a box collider and the ground); time both.  Each Jacobi pass prints
+   its tile plan (build time, tiles, largest tile, shared memory, CTAs
+   per SM) and must give the same bits on 20 launches from one snapshot.
+   Each sweep kernel also
    runs its plan's dependency schedule on the card's Q CTAs and on one
    CTA (plan order): 20 back-to-back launches each from the same state,
    which must agree bit for bit; print each schedule (Q, CTAs used,
@@ -50,7 +57,8 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    design's.
 12. One profiled window of each main path's warm Engine, and of the
    coloured step on SampleScene's body (torch.profiler: device time per
-   kernel, the device's busy share of the timed window).
+   kernel, the device's busy share of the timed window); the jacobi
+   window must name both Jacobi pass kernels inside its graph replays.
    It comes last of the timings: once the profiler has run, the host's
    launches are slower.
 
@@ -99,9 +107,11 @@ FP32_OPS_PER_S = 67e12
 #   per block touching it, and later blocks read those positions.  Positions
 #   within 1e-4 m (~0.5% of an edge's rest length 0.0213 m); lambdas
 #   within 1e-3 of the largest |lambda| of the sweep.
-# - Jacobi passes: one pass from one snapshot; the two sides differ only in
-#   fp32 summation order (CSR order against atomics), a few ulp at
-#   |x| ~ 2 m: within 1e-5 m, and the per-particle counts equal.
+# - Jacobi passes: one pass from one snapshot; the two sides differ in fp32
+#   summation order (the tile's slot order against atomics) and rounding
+#   (the kernel computes as the TPU kernel: the f32 sixth multiplied,
+#   lambda = (-k C) / w), a few ulp at |x| ~ 2 m: within 1e-5 m, and the
+#   per-particle counts equal.
 # - collide: the same arithmetic in the same order, no FMA on either side:
 #   within 1e-6 m.
 X_TOL = 1e-4
@@ -114,6 +124,8 @@ ORACLE_TOL = 1e-4
 HOLD_CYCLES = 20_000_000
 # the sweep over its schedule's CTAs against one CTA: launches compared
 SCHEDULE_LAUNCHES = 20
+# a Jacobi pass, launched again from the same snapshot: launches compared
+PASS_LAUNCHES = 20
 # each sweep kernel's device ms per call at north-star shapes in its
 # earlier design, one CTA walking the plan (NVIDIA H100 80GB HBM3,
 # 700.00 W; PERF.md section 6), printed beside this run's
@@ -255,9 +267,10 @@ def _short(name: str) -> str:
 def profile_window(eng, steps: int, timed_ms: float) -> dict:
     """One profiled window of ``steps`` steps of a warm Engine: per device
     activity its count and mean us, the device's busy ms per step, and
-    that over ``timed_ms`` (the unprofiled window's ms/step) as the busy
-    share.  The profiled window's own wall time is printed too; the
-    profiler slows the host's launches, so it is not the step's time."""
+    that over ``timed_ms``
+    (the unprofiled window's ms/step) as the busy share.  The profiled
+    window's own wall time is printed too; the profiler slows the host's
+    launches, so it is not the step's time."""
     acts, wall_us = device_activity(lambda: eng.run(steps, DT).block())
     merged = collections.defaultdict(lambda: [0, 0.0])
     for name, (c, t) in acts.items():
@@ -736,14 +749,25 @@ def compare_jacobi_kernels(sbt, topo, device) -> dict:
     versions, from one predicted, perturbed state."""
     from softbodysim_torch.kernels import collide as kc
     from softbodysim_torch.kernels import jacobi as kj
+    from softbodysim_torch.kernels import jacobi_plan
 
     params = sbt.SolverParams(**JACOBI)
     V, E, T = topo.num_particles, topo.num_edges, topo.num_tets
-    t0 = time.perf_counter()
-    ep = kj.edge_pass_plan(V, topo.edges, topo.edge_rest, device=device)
-    tp = kj.tet_pass_plan(V, topo.tets, topo.tet_rest_vol, device=device)
-    print(f"jacobi pass plans (CSR): {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    plans = {}
+    for name, make, cons, rest in (
+            ("jacobi_edge_pass", kj.edge_pass_plan, topo.edges,
+             topo.edge_rest),
+            ("jacobi_tet_pass", kj.tet_pass_plan, topo.tets,
+             topo.tet_rest_vol)):
+        t0 = time.perf_counter()
+        plan = plans[name] = make(V, cons, rest, device=device,
+                                  vertices=topo.vertices)
+        built = time.perf_counter() - t0
+        tl = plan.tiles
+        print(f"{name} tile plan: {built:.2f} s; "
+              f"{jacobi_plan.describe(tl, tl.rest.shape[0], len(cons))}; "
+              f"{kj.ctas_per_sm(plan)} CTAs per SM", flush=True)
+    ep, tp = plans["jacobi_edge_pass"], plans["jacobi_tet_pass"]
     state = sbt.init_state(topo, inv_mass_mode="density", device=device)
     sdt = np.float32(DT) / np.float32(params.substeps)
     rng = np.random.default_rng(SEED + 1)
@@ -757,22 +781,25 @@ def compare_jacobi_kernels(sbt, topo, device) -> dict:
     om = float(np.float32(params.sor_omega))
     res = {}
 
-    # per incident edge ~22 flops, per vertex apply 7; per tet ~130 flops
-    # plus 3 per corner gathered, per vertex apply 7
+    # the function's own data, whatever implements it: the snapshot read
+    # and the rows written once, each constraint's vertex ids, rest value
+    # and (when given) stiffness read once; per edge ~22 flops, per tet
+    # ~130 plus 3 per corner, per vertex apply 7
     passes = (
         ("jacobi_edge_pass", ep, k_e, kj.jacobi_edge_pass,
          kj.jacobi_edge_pass_plain,
-         nbytes(xin, ep.row, ep.ent, ep.rest, ep.k, xin),
-         22 * 2 * E + 7 * V, 1),
+         nbytes(xin, ep.edges, ep.rest, ep.k, xin), 22 * E + 7 * V),
         ("jacobi_tet_pass", tp, k_t, kj.jacobi_tet_pass,
          kj.jacobi_tet_pass_plain,
-         nbytes(xin, tp.tets, tp.rest, tp.k, tp.row, tp.slot, xin),
-         130 * T + 12 * T + 7 * V, 2))      # two launches: see jacobi.cu
-    for name, plan, k, fn, plain, nb, ops, nkern in passes:
+         nbytes(xin, tp.tets, tp.rest, tp.k, xin), 130 * T + 12 * T + 7 * V))
+    for name, plan, k, fn, plain, nb, ops in passes:
+        # the kernel reads k and omega from the device, as in the step
+        kd, omd = (torch.tensor(v, dtype=torch.float32, device=device)
+                   for v in (k, om))
         xa, xb = torch.empty_like(xin), torch.empty_like(xin)
         ca = torch.zeros(V, dtype=torch.int32, device=device)
         cb = torch.zeros_like(ca)
-        fn(plan, xin, xa, k, om, ca)
+        fn(plan, xin, xa, kd, omd, ca)
         plain(plan, xin, xb, k, om, cb)
         torch.cuda.synchronize()
         if not torch.isfinite(xa).all():
@@ -789,8 +816,18 @@ def compare_jacobi_kernels(sbt, topo, device) -> dict:
             raise AssertionError(f"{name}: counts disagree")
         if not moved > 0.0:
             raise AssertionError(f"{name}: the pass moved nothing")
+        # a fixed summation order: every launch gives the same bits
+        outs = torch.empty((PASS_LAUNCHES, V, 4), device=device)
+        for i in range(PASS_LAUNCHES):
+            fn(plan, xin, outs[i], kd, omd)
+        torch.cuda.synchronize()
+        same = bool((outs == xa).all().item())
+        print(f"{name}: {PASS_LAUNCHES} launches bitwise equal {same}",
+              flush=True)
+        if not same:
+            raise AssertionError(f"{name}: launches differ")
         res[name] = result(
-            err, kernel_ms(lambda: fn(plan, xin, xa, k, om), 20, nkern),
+            err, kernel_ms(lambda: fn(plan, xin, xa, kd, omd), 20),
             events_ms(lambda: plain(plan, xin, xb, k, om), 5), nb, ops)
         report(name, res[name])
 
@@ -856,8 +893,59 @@ def jacobi_main_path(sbt, topo, device) -> tuple:
     for name in ("jacobi_edge_pass", "jacobi_tet_pass", "collide"):
         if not counts[name] > 0:
             raise AssertionError(f"{name} was not launched: {counts}")
+    if not eng._raw_step._graphs:
+        raise AssertionError("the pass step captured no CUDA graph")
 
     return counts, timed_window(eng, 20), eng
+
+
+def jacobi_eager_ms(eng, steps: int) -> float:
+    """Host-clock ms/step of the warm jacobi Engine's pass step run
+    eagerly -- kernel by kernel, no graph -- on a copy of its state (a
+    diagnostic beside the graphed step): three windows of ``steps`` steps
+    after a warm one, printed; their median."""
+    from softbodysim_torch.kernels import collide as kc
+
+    step = eng._raw_step
+    carry = step.pack_state(eng.state)
+    scalars = step._scalars(DT)
+    packed = kc.pack_colliders(step.colliders, step.device)
+    substeps = steps * max(1, step.params.substeps)
+    ms = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        carry = step._run_eager(carry, substeps, scalars, packed)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 / steps)
+    print(f"pass, eager (diagnostic): ms/step in 3 windows of {steps} "
+          f"steps: {', '.join(f'{m:.4f}' for m in ms[1:])}", flush=True)
+    return float(np.median(ms[1:]))
+
+
+def jacobi_override_ms(eng, steps: int) -> float:
+    """Host-clock ms/step of the warm jacobi Engine stepped one step at a
+    time with stiffness and omega overrides that change every step (a
+    diagnostic: the graphs read the step scalars from the device, so no
+    step captures a new graph); three windows after a warm one, printed;
+    their median."""
+    step = eng._raw_step
+    graphs = len(step._graphs)
+    ms = []
+    for w in range(4):
+        t0 = time.perf_counter()
+        for i in range(steps):
+            d = 1e-3 * (w * steps + i)
+            eng.step(DT, edge_stiffness=0.9 - d, volume_stiffness=0.98 - d,
+                     sor_omega=1.4 - d)
+        eng.block()
+        ms.append((time.perf_counter() - t0) * 1e3 / steps)
+    print(f"pass, graphed, overrides changing every step (diagnostic): "
+          f"ms/step in 3 windows of {steps} steps: "
+          f"{', '.join(f'{m:.4f}' for m in ms[1:])}; graphs "
+          f"{graphs} -> {len(step._graphs)}", flush=True)
+    if len(step._graphs) != graphs:
+        raise AssertionError("a step-time override captured a new graph")
+    return float(np.median(ms[1:]))
 
 
 def sample_scene(sbt, device) -> dict:
@@ -957,9 +1045,15 @@ def main() -> int:
     print(f"xpbd north star (8 substeps, 1 iteration): {x_ms:.3f} ms/step, "
           f"{1e3 / x_ms:.2f} steps/s on {card}", flush=True)
     j_counts, j_ms, j_eng = jacobi_main_path(sbt, topo, device)
-    print(f"jacobi tet_cube(47) (2 substeps, 6 iterations, floor box): "
-          f"{j_ms:.3f} ms/step, {1e3 / j_ms:.2f} steps/s on {card}",
+    print(f"jacobi tet_cube(47) (2 substeps, 6 iterations, floor box), "
+          f"graphed: {j_ms:.3f} ms/step, {1e3 / j_ms:.2f} steps/s on {card}",
           flush=True)
+    je_ms = jacobi_eager_ms(j_eng, 20)
+    print(f"jacobi tet_cube(47), eager (diagnostic): {je_ms:.3f} ms/step "
+          f"on {card}", flush=True)
+    jo_ms = jacobi_override_ms(j_eng, 20)
+    print(f"jacobi tet_cube(47), graphed, one step per call with overrides "
+          f"(diagnostic): {jo_ms:.3f} ms/step on {card}", flush=True)
     l_counts, l_ms, l_eng = legacy_main_path(sbt, topo, device)
     print(f"xpbd legacy 128-wide tet_cube(47) (8 substeps, 1 iteration, "
           f"box): {l_ms:.3f} ms/step, {1e3 / l_ms:.2f} steps/s on {card}",
@@ -990,6 +1084,10 @@ def main() -> int:
         print(json.dumps({"profile": label, **prof}), flush=True)
         print(f"profile of {label}: {time.perf_counter() - t0:.2f} s",
               flush=True)
+        # the profiler names the kernels inside the graph replays
+        for kern in ("tile_pass_kernel<2>", "tile_pass_kernel<4>"):
+            if eng is j_eng and kern not in prof["device"]:
+                raise AssertionError(f"the jacobi profile names no {kern}")
 
     ksw.raise_on_timeouts()
     src = "softbodysim_torch/kernels/csrc/"

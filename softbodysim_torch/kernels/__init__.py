@@ -2,6 +2,14 @@
 with its plain PyTorch version; ``launch_counts`` reads every wrapper's
 count of kernel launches."""
 
+import collections
+import contextlib
+
+import torch
+
+# the launch tallies of the CUDA graph captures in progress (innermost last)
+_captures = []
+
 
 def _wrappers():
     from . import collide, jacobi, sweep
@@ -9,6 +17,28 @@ def _wrappers():
     return (sweep.w_fill, sweep.edge_sweep, sweep.tet_sweep,
             jacobi.jacobi_edge_pass, jacobi.jacobi_tet_pass, collide.collide,
             sweep.legacy_edge_sweep, sweep.legacy_tet_sweep)
+
+
+def count_launch(fn) -> None:
+    """One launch of ``fn``'s kernel: added to ``fn.launches``, or, while
+    the current stream captures a CUDA graph (nothing runs), to the
+    capture's tally (``capture_tally``), which each replay adds."""
+    if torch.cuda.is_current_stream_capturing():
+        if _captures:
+            _captures[-1][fn.__name__] += 1
+    else:
+        fn.launches += 1
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Yields {wrapper name: launches} recorded by the captures inside."""
+    tally = collections.Counter()
+    _captures.append(tally)
+    try:
+        yield tally
+    finally:
+        _captures.pop()
 
 
 def launch_counts() -> dict:
@@ -19,3 +49,10 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in _wrappers():
         fn.launches = 0
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add ``counts`` ({wrapper name: n}) to the wrappers' counts: a CUDA
+    graph's replay launches the kernels its capture recorded."""
+    for fn in _wrappers():
+        fn.launches += counts.get(fn.__name__, 0)

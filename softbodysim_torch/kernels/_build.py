@@ -114,8 +114,9 @@ def load() -> ctypes.CDLL:
         "sbs_sweep": [i, p, p],
         "sbs_sweep_timeouts": [],
         # jacobi.cu
-        "sbs_jacobi_edge_pass": [p, p, p, p, p, p, i, f, f, p, p],
-        "sbs_jacobi_tet_pass": [p, p, p, p, p, p, p, p, i, i, f, f, p, p],
+        "sbs_jacobi_ctas_per_sm": [i, i],
+        "sbs_jacobi_pass": [i, p, p, p, p, p, p, p, p, p, p, i, i, p, p, p,
+                            p],
         # collide.cu
         "sbs_collide": [p, i, p, i, i, f, f, f, f, f, f, f, p],
     }

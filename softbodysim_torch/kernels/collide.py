@@ -24,6 +24,7 @@ import torch
 from ..collide.primitives import (Colliders, collide_particles,
                                   project_ground_plane)
 from ..core.state import f32, resolve_device
+from . import count_launch
 from .sweep import _check, _lib, _ptr, _raise_on, _stream
 
 COLUMNS = 12        # [type, pos3, quat4, data3, active]
@@ -147,7 +148,7 @@ def collide(xw: torch.Tensor, packed: torch.Tensor,
         int(ground.enabled), f(gpx), f(gpy), f(gpz), f(gnx), f(gny), f(gnz),
         f(ground.radius), _stream(dev))
     _raise_on(rc, "collide")
-    collide.launches += 1
+    count_launch(collide)
     return xw
 
 

@@ -2,56 +2,70 @@
 // stage per constraint family, reading one frozen snapshot.
 //
 // Replaces the TPU kernels of softbodysim_tpu/kernels/jacobi.py:
-//   edge_pass_kernel            <- _edge_pass_kernel (:71, pallas_call
-//                                  :360; with _scatter_acc4 :44 and
-//                                  _apply_epilogue :58)
-//   tet_grad_kernel + tet_gather_apply_kernel
-//                               <- _tet_pass_kernel  (:158, pallas_call :360)
+//   tile_pass_kernel<2>  <- _edge_pass_kernel (:71, pallas_call :360; with
+//                           _scatter_acc4 :44 and _apply_epilogue :58)
+//   tile_pass_kernel<4>  <- _tet_pass_kernel  (:158, pallas_call :360)
 //
 // Semantics (the reference's K_EdgeGather / K_VolumeGather -> K_ApplyDelta,
 // and the JAX package's solver/jacobi.py segment formulation): every
 // constraint reads the positions of the snapshot xin; per particle the
 // contributions are summed into (delta, count) and applied as
 // x_out = x_in + (omega / count) * delta for free particles with count > 0,
-// else x_out = x_in.  lambda is spelled -k * (C / w), as the XLA paths and
-// tests/oracle.py spell it.
+// else x_out = x_in.  The per-constraint arithmetic is the TPU kernels'
+// (lambda = (-k * C) / w; the edge direction folded in as lambda / |d|; the
+// tet gradients times the f32 sixth), so the kernels differ from the plain
+// PyTorch versions (the segment formulation: -k * (C / w), d / |d|, a
+// division by 6) by a few ulps, besides their order of summation.
 //
-// Design.  Pure Jacobi reads one snapshot, so there is no block order to
-// keep (unlike the XPBD sweeps): the passes run over all SMs at once and
-// write a second table (double buffering; the step swaps the two), never
-// the one they read.  Tables are in public vertex order: xw (V, 4) f32 rows
-// x, y, z, inverse mass, so a gather is one 16-byte load.
-//   Edge pass: one thread per vertex walks its CSR row of incident edges
-//   (other endpoint, edge index; core/adjacency.build_edge_adjacency order),
-//   recomputes each edge's lambda from the snapshot and sums its own
-//   contribution n * (lambda * w_i): each edge is computed twice, once from
-//   each end, and nothing is written but the vertex's row -- no atomics, a
-//   fixed sum order.
-//   Tet pass, two kernels: (a) one thread per tet computes its role
-//   gradients and lambda once and writes, role-major, one float4 per
-//   corner: g_r * (lambda * w_r) and a count flag (tet valid and w_r != 0);
-//   (b) one thread per vertex sums its CSR row of those slots
-//   (build_tet_adjacency order) and applies.  Two kernels because a tet
-//   costs ~150 flops and has four corners: recomputing it per corner would
-//   quadruple the arithmetic, while the role-major table costs 4T x 16 B
-//   written and read once.
-// What bounds them: bytes.  Edge pass at 110,592 vertices / 642,960 edges:
-// snapshot 1.77 MB + CSR 10.73 MB + rest 2.57 MB read, 1.77 MB written:
-// 16.8 MB, 5.0 us at 3.35 TB/s.  Tet pass at 519,115 tets: tets 8.31 MB +
-// rest 2.08 MB + snapshot 1.77 MB + CSR 8.75 MB read, 1.77 MB written:
-// 22.7 MB, 6.8 us; beside it the design's own 4T x 16 B table, 33.2 MB
-// written and read again (19.8 us more).  The snapshot stays in the 50 MB
-// L2, so the random neighbour gathers hit L2.
+// Design: owner computes, over spatial vertex tiles.  Pure Jacobi reads one
+// snapshot, so there is no constraint order to keep (unlike the XPBD
+// sweeps), only each vertex's summation order, which is fixed so that a
+// pass gives the same bits on every launch (no atomics).  The host
+// (kernels/jacobi_plan.py) cuts the vertices into spatial tiles of at most
+// 256 owned vertices and lists, per tile, its referenced rows (owned, then
+// the halo its constraints reach), every constraint with an owned corner
+// (int16 local rows, and per corner the tile-local slot of its
+// contribution or -1) and per owned vertex the end of its contiguous run
+// of slots.  One CTA per tile, one launch per pass:
+//   1. stage the tile's referenced rows of xin in shared memory;
+//   2. compute each listed constraint once from shared memory and write its
+//      owned corners' contributions (xyz, count flag) to their slots, also
+//      in shared memory;
+//   3. barrier; each owned vertex sums its run of slots in order, counts,
+//      applies, and writes its row of xout (and its count).
+// Nothing but xout (and cnt_out) goes to device memory.  The stiffness and
+// the SOR factor are read from device memory at launch (a CUDA graph that
+// captured the launch reads their current values on each replay).  The pass
+// writes a
+// second table (double buffering; the step swaps the two), never the one
+// it reads.  Tables are in public vertex order: xw (V, 4) f32 rows x, y,
+// z, inverse mass, so a row is one 16-byte load.
 //
-// Build with --fmad=false: the products and sums round as in the plain
-// PyTorch versions (no contraction into FMA).
+// What bounds them.  The function moves, at 110,592 vertices / 642,960
+// edges: snapshot 1.77 MB + edges 5.14 MB + rest 2.57 MB read, 1.77 MB
+// written: 11.3 MB, 3.4 us at 3.35 TB/s; at 519,115 tets: snapshot 1.77 +
+// tets 8.31 + rest 2.08 read, 1.77 written: 13.9 MB, 4.2 us.  This design
+// reads instead its tile tables: a constraint touching several tiles is
+// listed (and computed) in each (1.21x the edges, 1.46x the tets at 256
+// owned vertices per tile), as an 8- or 16-byte record plus its rest, and
+// the halo rows again per tile.  What holds it above those bounds is the
+// SM's work per tile: per listed tet four 16-byte shared-memory gathers,
+// ~150 flops and one 16-byte store per owned corner, then every slot read
+// back in the sums (tools/profile_jacobi_phases.py, PERF.md).  Each thread
+// loads its next record while it computes the current one.
+//
+// Build with --fmad=false: no contraction into FMA, as on the TPU and in the
+// plain PyTorch versions.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+// Threads per CTA: 256 for the edge pass, 512 for the tet pass (a tet
+// costs ~6x an edge; at 256 threads the tet pass ran 1.2x slower, at 512
+// the edge pass 1.1x: tools/jacobi_tile_sizes.py, PERF.md).
+__host__ __device__ constexpr int threads_of(int arity) { return arity == 4 ? 512 : 256; }
 
 // x_out = x_in + (omega / cnt) * s for free rows with cnt > 0.
 __device__ __forceinline__ float4 apply_delta(float4 xi, float sx, float sy,
@@ -67,44 +81,6 @@ __device__ __forceinline__ float4 apply_delta(float4 xi, float sx, float sy,
   return out;
 }
 
-// Per vertex i, over its incident edges (j, e):
-//   w = w_i + w_j, d = x_i - x_j, valid: w != 0 and |d|^2 >= 1e-18;
-//   lambda = -k_e * ((|d| - rest_e) / w), k_e = k * ktab[e] when a table
-//   is given; contribution (d / |d|) * (lambda * w_i); count += valid.
-__global__ void __launch_bounds__(kThreads)
-edge_pass_kernel(const float4* __restrict__ xin, float4* __restrict__ xout,
-                 const int* __restrict__ row, const int2* __restrict__ ent,
-                 const float* __restrict__ rest,
-                 const float* __restrict__ ktab, int nv, float k,
-                 float omega, int* __restrict__ cnt_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nv) return;
-  const float4 xi = xin[i];
-  float sx = 0.f, sy = 0.f, sz = 0.f;
-  int cnt = 0;
-  const int q1 = row[i + 1];
-  for (int q = row[i]; q < q1; ++q) {
-    const int2 je = ent[q];
-    const float4 xj = xin[je.x];
-    const float w = xi.w + xj.w;
-    const float dx = xi.x - xj.x, dy = xi.y - xj.y, dz = xi.z - xj.z;
-    const float len2 = dx * dx + dy * dy + dz * dz;
-    if (w != 0.f && len2 >= 1e-18f) {
-      const float len = sqrtf(fmaxf(len2, 1e-30f));
-      const float c = len - rest[je.y];
-      const float kk = ktab != nullptr ? ktab[je.y] * k : k;
-      const float lam = -kk * (c / w);
-      const float s = lam * xi.w;
-      sx = sx + (dx / len) * s;
-      sy = sy + (dy / len) * s;
-      sz = sz + (dz / len) * s;
-      ++cnt;
-    }
-  }
-  xout[i] = apply_delta(xi, sx, sy, sz, cnt, omega);
-  if (cnt_out != nullptr) cnt_out[i] = cnt;
-}
-
 __device__ __forceinline__ void cross3(float ax, float ay, float az,
                                        float bx, float by, float bz,
                                        float& ox, float& oy, float& oz) {
@@ -113,40 +89,60 @@ __device__ __forceinline__ void cross3(float ax, float ay, float az,
   oz = ax * by - ay * bx;
 }
 
-// Phase (a), one thread per tet t = (a, b, c, d):
-//   g_a = ((p_d - p_b) x (p_c - p_b)) / 6, g_b = ((p_c - p_a) x (p_d - p_a))/6,
-//   g_c = ((p_d - p_a) x (p_b - p_a)) / 6, g_d = ((p_b - p_a) x (p_c - p_a))/6;
+// One edge (a, b), record {row a, row b, slot a, slot b}, in the TPU
+// kernel's arithmetic (_edge_pass_kernel):
+//   w = w_a + w_b, d = x_a - x_b, valid: w != 0 and |d|^2 >= 1e-18;
+//   lambda = (-k * (|d| - rest)) / w, s = d * (lambda / |d|);
+//   a gets s * w_a, b gets -(s * w_b); both count when valid.
+__device__ __forceinline__ void edge_visit(const float4* rows, float4* slots,
+                                           short4 r, float rest, float k) {
+  const float4 A = rows[r.x], B = rows[r.y];
+  const float w = A.w + B.w;
+  const float dx = A.x - B.x, dy = A.y - B.y, dz = A.z - B.z;
+  const float len2 = dx * dx + dy * dy + dz * dz;
+  const bool valid = w != 0.f && len2 >= 1e-18f;
+  float sx = 0.f, sy = 0.f, sz = 0.f;
+  if (valid) {
+    const float len = sqrtf(fmaxf(len2, 1e-30f));
+    const float sl = ((-k * (len - rest)) / w) / len;
+    sx = dx * sl;
+    sy = dy * sl;
+    sz = dz * sl;
+  }
+  const float flag = valid ? 1.f : 0.f;
+  if (r.z >= 0) slots[r.z] = make_float4(sx * A.w, sy * A.w, sz * A.w, flag);
+  if (r.w >= 0)
+    slots[r.w] = make_float4(-(sx * B.w), -(sy * B.w), -(sz * B.w), flag);
+}
+
+// One tet (a, b, c, d), rows v and slots s, in the TPU kernel's arithmetic
+// (_tet_pass_kernel; the f32 sixth multiplies, as there):
+//   g_a = ((p_d - p_b) x (p_c - p_b)) * 1/6, g_b = ((p_c - p_a) x (p_d - p_a))
+//   * 1/6, g_c = ((p_d - p_a) x (p_b - p_a)) * 1/6, g_d = ((p_b - p_a) x
+//   (p_c - p_a)) * 1/6;
 //   wsum = sum_r w_r |g_r|^2, valid: sum_r w_r != 0 and wsum >= 1e-20;
-//   vol = ((p_b - p_a) x (p_c - p_a)) . (p_d - p_a) / 6;
-//   lambda = -k_t * ((vol - rest_t) / wsum);
-//   glam[r * T + t] = (g_r * (lambda * w_r), valid && w_r != 0).
-__global__ void __launch_bounds__(kThreads)
-tet_grad_kernel(const float4* __restrict__ xin, const int4* __restrict__ tets,
-                const float* __restrict__ rest,
-                const float* __restrict__ ktab, int nt, float k,
-                float4* __restrict__ glam) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= nt) return;
-  const int4 v = tets[t];
-  const float4 A = xin[v.x], B = xin[v.y], C = xin[v.z], D = xin[v.w];
+//   vol = g_d . (p_d - p_a); lambda = (-k * (vol - rest)) / wsum;
+//   corner r gets g_r * (lambda * w_r), counted when valid and w_r != 0.
+__device__ __forceinline__ void tet_visit(const float4* rows, float4* slots,
+                                          short4 v, short4 s, float rest,
+                                          float k) {
+  constexpr float kSixth = 1.f / 6.f;
+  const float4 A = rows[v.x], B = rows[v.y], C = rows[v.z], D = rows[v.w];
+  const float dax = D.x - A.x, day = D.y - A.y, daz = D.z - A.z;
   float g[4][3];
   cross3(D.x - B.x, D.y - B.y, D.z - B.z, C.x - B.x, C.y - B.y, C.z - B.z,
          g[0][0], g[0][1], g[0][2]);
-  cross3(C.x - A.x, C.y - A.y, C.z - A.z, D.x - A.x, D.y - A.y, D.z - A.z,
+  cross3(C.x - A.x, C.y - A.y, C.z - A.z, dax, day, daz,
          g[1][0], g[1][1], g[1][2]);
-  cross3(D.x - A.x, D.y - A.y, D.z - A.z, B.x - A.x, B.y - A.y, B.z - A.z,
+  cross3(dax, day, daz, B.x - A.x, B.y - A.y, B.z - A.z,
          g[2][0], g[2][1], g[2][2]);
-  float crx, cry, crz;        // (p_b - p_a) x (p_c - p_a), before the / 6
   cross3(B.x - A.x, B.y - A.y, B.z - A.z, C.x - A.x, C.y - A.y, C.z - A.z,
-         crx, cry, crz);
-  g[3][0] = crx;
-  g[3][1] = cry;
-  g[3][2] = crz;
+         g[3][0], g[3][1], g[3][2]);
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    g[r][0] = g[r][0] / 6.f;
-    g[r][1] = g[r][1] / 6.f;
-    g[r][2] = g[r][2] / 6.f;
+    g[r][0] = g[r][0] * kSixth;
+    g[r][1] = g[r][1] * kSixth;
+    g[r][2] = g[r][2] * kSixth;
   }
   const float w[4] = {A.w, B.w, C.w, D.w};
   float wsum = 0.f;
@@ -160,82 +156,161 @@ tet_grad_kernel(const float4* __restrict__ xin, const int4* __restrict__ tets,
                      wsum >= 1e-20f;
   float lam = 0.f;
   if (valid) {
-    const float vol = (crx * (D.x - A.x) + cry * (D.y - A.y) +
-                       crz * (D.z - A.z)) / 6.f;
-    const float kk = ktab != nullptr ? ktab[t] * k : k;
-    lam = -kk * ((vol - rest[t]) / wsum);
+    const float vol = g[3][0] * dax + g[3][1] * day + g[3][2] * daz;
+    lam = (-k * (vol - rest)) / wsum;
   }
+  const short dst[4] = {s.x, s.y, s.z, s.w};
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    const float s = lam * w[r];
-    glam[(size_t)r * nt + t] =
-        make_float4(g[r][0] * s, g[r][1] * s, g[r][2] * s,
-                    (valid && w[r] != 0.f) ? 1.f : 0.f);
+    if (dst[r] >= 0) {
+      const float sc = lam * w[r];
+      slots[dst[r]] = make_float4(g[r][0] * sc, g[r][1] * sc, g[r][2] * sc,
+                                  (valid && w[r] != 0.f) ? 1.f : 0.f);
+    }
   }
 }
 
-// Phase (b), one thread per vertex: sum the vertex's slots of the phase-(a)
-// table, count the flagged ones, apply.
-__global__ void __launch_bounds__(kThreads)
-tet_gather_apply_kernel(const float4* __restrict__ xin,
-                        float4* __restrict__ xout,
-                        const float4* __restrict__ glam,
-                        const int* __restrict__ row,
-                        const int* __restrict__ slot, int nv, float omega,
-                        int* __restrict__ cnt_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nv) return;
-  float sx = 0.f, sy = 0.f, sz = 0.f;
-  int cnt = 0;
-  const int q1 = row[i + 1];
-  for (int q = row[i]; q < q1; ++q) {
-    const float4 gl = glam[slot[q]];
-    sx = sx + gl.x;
-    sy = sy + gl.y;
-    sz = sz + gl.z;
-    cnt += gl.w != 0.f ? 1 : 0;
+// One CTA per tile t.  Shared memory: the tile's referenced rows, then its
+// slots.  rec: per listed constraint one short4 (edges: rows a, b, slots
+// a, b) or two (tets: rows, then slots); rest / ktab per listed constraint.
+template <int kArity>
+__global__ void __launch_bounds__(threads_of(kArity))
+tile_pass_kernel(const float4* __restrict__ xin, float4* __restrict__ xout,
+                 const int* __restrict__ row_ptr,
+                 const int* __restrict__ rows,
+                 const int* __restrict__ own_ptr,
+                 const short* __restrict__ slot_end,
+                 const int* __restrict__ con_ptr,
+                 const short4* __restrict__ rec,
+                 const float* __restrict__ rest,
+                 const float* __restrict__ ktab,
+                 const float* __restrict__ kp,
+                 const float* __restrict__ omegap,
+                 int* __restrict__ cnt_out) {
+  constexpr int kThreads = threads_of(kArity);
+  const float k = *kp, omega = *omegap;
+  constexpr int kRec = kArity / 2;            // short4 per record
+  extern __shared__ float4 smem[];
+  const int t = blockIdx.x;
+  const int r0 = row_ptr[t], nr = row_ptr[t + 1] - r0;
+  const int o0 = own_ptr[t], no = own_ptr[t + 1] - o0;
+  const int c0 = con_ptr[t], c1 = con_ptr[t + 1];
+  float4* srows = smem;
+  float4* slots = smem + nr;
+
+  for (int r = threadIdx.x; r < nr; r += kThreads)
+    srows[r] = xin[rows[r0 + r]];
+  __syncthreads();
+
+  // each thread's constraints, its next record loaded ahead of the visit
+  short4 nr0 = {}, nr1 = {};
+  float nrest = 0.f, nk = k;
+  auto load_record = [&](int c) {
+    nr0 = rec[kRec * c];
+    if (kRec == 2) nr1 = rec[kRec * c + 1];
+    nrest = rest[c];
+    if (ktab != nullptr) nk = ktab[c] * k;
+  };
+  int c = c0 + threadIdx.x;
+  if (c < c1) load_record(c);
+  while (c < c1) {
+    const short4 v0 = nr0, v1 = nr1;
+    const float rs = nrest, kk = nk;
+    c += kThreads;
+    if (c < c1) load_record(c);
+    if (kArity == 2) {
+      edge_visit(srows, slots, v0, rs, kk);
+    } else {
+      tet_visit(srows, slots, v0, v1, rs, kk);
+    }
   }
-  xout[i] = apply_delta(xin[i], sx, sy, sz, cnt, omega);
-  if (cnt_out != nullptr) cnt_out[i] = cnt;
+  __syncthreads();
+
+  for (int o = threadIdx.x; o < no; o += kThreads) {
+    const int s0 = o > 0 ? (int)slot_end[o0 + o - 1] : 0;
+    const int s1 = slot_end[o0 + o];
+    float sx = 0.f, sy = 0.f, sz = 0.f;
+    int cnt = 0;
+    for (int s = s0; s < s1; ++s) {
+      const float4 v = slots[s];
+      sx = sx + v.x;
+      sy = sy + v.y;
+      sz = sz + v.z;
+      cnt += v.w != 0.f ? 1 : 0;
+    }
+    const int g = rows[r0 + o];
+    xout[g] = apply_delta(srows[o], sx, sy, sz, cnt, omega);
+    if (cnt_out != nullptr) cnt_out[g] = cnt;
+  }
 }
 
-int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+using PassKernel = void (*)(const float4*, float4*, const int*, const int*,
+                            const int*, const short*, const int*,
+                            const short4*, const float*, const float*,
+                            const float*, const float*, int*);
+
+PassKernel kernel_of(int arity) {
+  switch (arity) {
+    case 2: return tile_pass_kernel<2>;
+    case 4: return tile_pass_kernel<4>;
+    default: return nullptr;
+  }
+}
+
+// Allow the kernel the card's whole opt-in shared memory, once per arity.
+cudaError_t opt_in(int arity) {
+  static bool done[5] = {false, false, false, false, false};
+  if (done[arity]) return cudaSuccess;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel_of(arity),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+  done[arity] = err == cudaSuccess;
+  return err;
+}
 
 }  // namespace
 
-// Plain C entry points (bound with ctypes).  Each launches on the given
-// stream, does not synchronise, and returns cudaGetLastError() so that a
-// refused launch is reported to the caller.
+// Plain C entry points (bound with ctypes).
 extern "C" {
 
-int sbs_jacobi_edge_pass(const void* xin, void* xout, const int* row,
-                         const void* ent, const float* rest,
-                         const float* ktab, int nv, float k, float omega,
-                         int* cnt_out, void* stream) {
-  if (nv > 0) {
-    edge_pass_kernel<<<blocks_for(nv), kThreads, 0, (cudaStream_t)stream>>>(
-        (const float4*)xin, (float4*)xout, row, (const int2*)ent, rest, ktab,
-        nv, k, omega, cnt_out);
-  }
-  return (int)cudaGetLastError();
+// CTAs of the pass kernel of this arity that one SM holds at once with
+// smem bytes of shared memory each (0: not even one); a negative CUDA error
+// code on failure.
+int sbs_jacobi_ctas_per_sm(int arity, int smem) {
+  if (kernel_of(arity) == nullptr) return -(int)cudaErrorInvalidValue;
+  cudaError_t err = opt_in(arity);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel_of(arity), threads_of(arity), smem);
+  return err == cudaSuccess ? per_sm : -(int)err;
 }
 
-int sbs_jacobi_tet_pass(const void* xin, void* xout, const int* tets,
-                        const float* rest, const float* ktab, void* glam,
-                        const int* row, const int* slot, int nv, int nt,
-                        float k, float omega, int* cnt_out, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (nt > 0) {
-    tet_grad_kernel<<<blocks_for(nt), kThreads, 0, s>>>(
-        (const float4*)xin, (const int4*)tets, rest, ktab, nt, k,
-        (float4*)glam);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (nv > 0) {
-    tet_gather_apply_kernel<<<blocks_for(nv), kThreads, 0, s>>>(
-        (const float4*)xin, (float4*)xout, (const float4*)glam, row, slot, nv,
-        omega, cnt_out);
+// One pass: one CTA of threads_of(arity) threads per tile, smem bytes of
+// dynamic shared memory (the plan's largest tile); k and omega point to one
+// f32 each in device memory.  Launches on the given
+// stream, does not synchronise, and returns cudaGetLastError() so that a
+// refused launch is reported to the caller.
+int sbs_jacobi_pass(int arity, const void* xin, void* xout,
+                    const int* row_ptr, const int* rows, const int* own_ptr,
+                    const short* slot_end, const int* con_ptr,
+                    const void* rec, const float* rest, const float* ktab,
+                    int ntiles, int smem, const float* k,
+                    const float* omega, int* cnt_out, void* stream) {
+  PassKernel kernel = kernel_of(arity);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = opt_in(arity);
+  if (err != cudaSuccess) return (int)err;
+  if (ntiles > 0) {
+    kernel<<<ntiles, threads_of(arity), smem, (cudaStream_t)stream>>>(
+        (const float4*)xin, (float4*)xout, row_ptr, rows, own_ptr, slot_end,
+        con_ptr, (const short4*)rec, rest, ktab, k, omega, cnt_out);
   }
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,12 @@ each with its plain PyTorch version beside it.
 * ``jacobi_edge_pass`` -- replaces ``softbodysim_tpu/kernels/jacobi.py::
   _edge_pass_kernel``: one distance gather + apply stage.
 * ``jacobi_tet_pass``  -- replaces ``_tet_pass_kernel``: one volume gather +
-  apply stage (two kernel launches: per-tet gradients, per-vertex gather).
+  apply stage.
+
+Both kernels are one launch of one CTA per spatial vertex tile
+(``jacobi_plan.tile_plan``; the plans below hold each family's tiles on
+the device): no intermediate table in device memory, no atomics, a fixed
+summation order per vertex.
 
 Both read the snapshot ``xin`` and write ``xout``, two distinct (V, 4) f32
 tables of rows x, y, z, inverse mass in public vertex order; the caller
@@ -15,21 +20,23 @@ defined here (``edge_jacobi_deltas``, ``tet_jacobi_deltas``, each an
 segment and gather backends import that math from here.  A wrapper runs its
 plain version for tables on the CPU and launches its kernel for tables on
 a CUDA device, raising if the launch is refused; ``<wrapper>.launches``
-counts the kernel launches and nothing else.  ``cnt_out`` (optional, (V,)
+counts the kernel launches and nothing else (``kernels.count_launch``).
+``k`` and ``omega`` are floats or 0-dim float32 tensors on the tables'
+device: the kernel reads a tensor's value when it runs, so a CUDA graph
+that captured the launch follows the tensor.  ``cnt_out`` (optional, (V,)
 int32) receives each particle's constraint count.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..collide.primitives import cross3, dot3
-from ..core.adjacency import build_edge_adjacency, build_tet_adjacency
 from ..core.state import f32, resolve_device
+from . import count_launch, jacobi_plan
 from .sweep import _check, _lib, _ptr, _raise_on, _stream
 
 
@@ -119,15 +126,35 @@ def apply_delta(x_pred, inv_mass, delta, cnt, omega):
     return torch.where(ok[:, None], x_pred + scale[:, None] * delta, x_pred)
 
 
+class Tiles(NamedTuple):
+    """A family's tile plan (``jacobi_plan.tile_plan``) on one device: what
+    the CUDA pass reads.  Per listed constraint (tile-major) its record of
+    local rows and slots, its rest value and, with a per-constraint
+    stiffness table, its k."""
+
+    num_tiles: int
+    max_rows: int
+    max_cons: int
+    max_slots: int
+    smem_bytes: int
+    row_ptr: torch.Tensor          # (n+1,) int32
+    rows: torch.Tensor             # (sum R,) int32 global vertex ids
+    own_ptr: torch.Tensor          # (n+1,) int32
+    slot_end: torch.Tensor         # (V,) int16
+    con_ptr: torch.Tensor          # (n+1,) int32
+    rec: torch.Tensor              # (L, 2 * arity) int16
+    rest: torch.Tensor             # (L,) f32
+    k: Optional[torch.Tensor]      # (L,) f32
+
+
 class EdgePassPlan(NamedTuple):
     """The distance constraints of one topology on one device."""
 
     num_particles: int
-    row: torch.Tensor              # (V+1,) int32 CSR offsets
-    ent: torch.Tensor              # (2E, 2) int32 (other endpoint, edge)
+    edges: torch.Tensor            # (E, 2) int32, the plain version's
     rest: torch.Tensor             # (E,) f32
     k: Optional[torch.Tensor]      # (E,) f32 per-constraint stiffness
-    edges: torch.Tensor            # (E, 2) int32, the plain version's
+    tiles: Tiles
 
 
 class TetPassPlan(NamedTuple):
@@ -137,52 +164,79 @@ class TetPassPlan(NamedTuple):
     tets: torch.Tensor             # (T, 4) int32
     rest: torch.Tensor             # (T,) f32
     k: Optional[torch.Tensor]      # (T,) f32 per-constraint stiffness
-    row: torch.Tensor              # (V+1,) int32 CSR offsets
-    slot: torch.Tensor             # (4T,) int32 role * T + tet
+    tiles: Tiles
 
 
 def _t(a, dtype, device):
     return torch.as_tensor(np.ascontiguousarray(a)).to(device, dtype)
 
 
-def _k_table(k, n, device):
+def _k_array(k, n):
     if k is None:
         return None
     k = np.asarray(k, np.float32).reshape(-1)
     if k.shape[0] != n:
         raise ValueError(f"per-constraint stiffness: {k.shape[0]} values "
                          f"for {n} constraints")
-    return _t(k, torch.float32, device)
+    return k
+
+
+def device_tiles(tp: jacobi_plan.TilePlan, rest, k, device) -> Tiles:
+    """A host tile plan on ``device``, with each listed constraint's rest
+    value and (``k``: the family's per-constraint table) stiffness."""
+    i32 = torch.int32
+    return Tiles(
+        num_tiles=tp.num_tiles, max_rows=tp.max_rows, max_cons=tp.max_cons,
+        max_slots=tp.max_slots, smem_bytes=tp.smem_bytes,
+        row_ptr=_t(tp.row_ptr, i32, device), rows=_t(tp.rows, i32, device),
+        own_ptr=_t(tp.own_ptr, i32, device),
+        slot_end=_t(tp.slot_end, torch.int16, device),
+        con_ptr=_t(tp.con_ptr, i32, device),
+        rec=_t(tp.rec, torch.int16, device),
+        rest=_t(rest[tp.cons], torch.float32, device),
+        k=None if k is None else _t(k[tp.cons], torch.float32, device))
 
 
 def edge_pass_plan(num_particles: int, edges, edge_rest, k=None,
-                   device=None) -> EdgePassPlan:
-    """CSR of incident edges per vertex (``build_edge_adjacency`` order)
-    and the edge tables, on ``device`` (default: the card)."""
+                   device=None, *, vertices) -> EdgePassPlan:
+    """The edge tables and their tile plan on ``device`` (default: the
+    card); ``vertices``: the rest positions the tiles are cut from."""
     dev = resolve_device(device)
     edges = np.asarray(edges, np.int64).reshape(-1, 2)
-    off, other, eidx = build_edge_adjacency(num_particles, edges)
-    i32 = torch.int32
+    rest = np.asarray(edge_rest, np.float32).reshape(-1)
+    k = _k_array(k, len(edges))
     return EdgePassPlan(
-        num_particles=num_particles, row=_t(off, i32, dev),
-        ent=_t(np.stack([other, eidx], 1), i32, dev),
-        rest=_t(np.asarray(edge_rest, np.float32), torch.float32, dev),
-        k=_k_table(k, len(edges), dev), edges=_t(edges, i32, dev))
+        num_particles=num_particles, edges=_t(edges, torch.int32, dev),
+        rest=_t(rest, torch.float32, dev),
+        k=None if k is None else _t(k, torch.float32, dev),
+        tiles=device_tiles(jacobi_plan.tile_plan(
+            num_particles, edges, vertices), rest, k, dev))
 
 
 def tet_pass_plan(num_particles: int, tets, tet_rest_vol, k=None,
-                  device=None) -> TetPassPlan:
-    """CSR of incident (tet, role) slots per vertex (``build_tet_adjacency``
-    order, slot = role * T + tet) and the tet tables, on ``device``."""
+                  device=None, *, vertices) -> TetPassPlan:
+    """The tet tables and their tile plan on ``device``."""
     dev = resolve_device(device)
     tets = np.asarray(tets, np.int64).reshape(-1, 4)
-    off, tidx, role = build_tet_adjacency(num_particles, tets)
-    i32 = torch.int32
+    rest = np.asarray(tet_rest_vol, np.float32).reshape(-1)
+    k = _k_array(k, len(tets))
     return TetPassPlan(
-        num_particles=num_particles, tets=_t(tets, i32, dev),
-        rest=_t(np.asarray(tet_rest_vol, np.float32), torch.float32, dev),
-        k=_k_table(k, len(tets), dev), row=_t(off, i32, dev),
-        slot=_t(role * len(tets) + tidx, i32, dev))
+        num_particles=num_particles, tets=_t(tets, torch.int32, dev),
+        rest=_t(rest, torch.float32, dev),
+        k=None if k is None else _t(k, torch.float32, dev),
+        tiles=device_tiles(jacobi_plan.tile_plan(
+            num_particles, tets, vertices), rest, k, dev))
+
+
+def ctas_per_sm(plan) -> int:
+    """CTAs of the plan's pass kernel that one SM of the current CUDA
+    device holds at once (the occupancy API at the plan's shared
+    memory); 0 if one CTA does not fit."""
+    arity = plan.tiles.rec.shape[1] // 2
+    n = _lib().sbs_jacobi_ctas_per_sm(arity, plan.tiles.smem_bytes)
+    if n < 0:
+        raise RuntimeError(f"sbs_jacobi_ctas_per_sm: CUDA error {-n}")
+    return n
 
 
 # --------------------------------------------------------------------------
@@ -205,14 +259,26 @@ def _check_pass(plan, xin, xout, cnt_out) -> torch.device:
     return dev
 
 
+def _check_tiles(tiles: Tiles, v: int, arity: int, dev) -> None:
+    n, L = tiles.num_tiles, tiles.rest.shape[0]
+    i32 = torch.int32
+    for name in ("row_ptr", "own_ptr", "con_ptr"):
+        _check(getattr(tiles, name), f"tiles.{name}", i32, (n + 1,), dev)
+    _check(tiles.rows, "tiles.rows", i32, (tiles.rows.shape[0],), dev)
+    _check(tiles.slot_end, "tiles.slot_end", torch.int16, (v,), dev)
+    _check(tiles.rec, "tiles.rec", torch.int16, (L, 2 * arity), dev)
+    _check(tiles.rest, "tiles.rest", torch.float32, (L,), dev)
+    if tiles.k is not None:
+        _check(tiles.k, "tiles.k", torch.float32, (L,), dev)
+
+
 def _check_edge_plan(plan: EdgePassPlan, dev) -> None:
     v, e = plan.num_particles, plan.rest.shape[0]
-    _check(plan.row, "plan.row", torch.int32, (v + 1,), dev)
-    _check(plan.ent, "plan.ent", torch.int32, (2 * e, 2), dev)
+    _check(plan.edges, "plan.edges", torch.int32, (e, 2), dev)
     _check(plan.rest, "plan.rest", torch.float32, (e,), dev)
     if plan.k is not None:
         _check(plan.k, "plan.k", torch.float32, (e,), dev)
-    _check(plan.edges, "plan.edges", torch.int32, (e, 2), dev)
+    _check_tiles(plan.tiles, v, 2, dev)
 
 
 def _check_tet_plan(plan: TetPassPlan, dev) -> None:
@@ -221,13 +287,24 @@ def _check_tet_plan(plan: TetPassPlan, dev) -> None:
     _check(plan.rest, "plan.rest", torch.float32, (t,), dev)
     if plan.k is not None:
         _check(plan.k, "plan.k", torch.float32, (t,), dev)
-    _check(plan.row, "plan.row", torch.int32, (v + 1,), dev)
-    _check(plan.slot, "plan.slot", torch.int32, (4 * t,), dev)
+    _check_tiles(plan.tiles, v, 4, dev)
 
 
-def _stiffness(plan, k: float):
+def _stiffness(plan, k):
     """k, or the per-constraint table times k (the scalar multiplies)."""
     return k if plan.k is None else plan.k * k
+
+
+def _scalar(v, name: str, dev) -> torch.Tensor:
+    """A step scalar as a 0-dim float32 tensor on ``dev`` (a float is
+    filled in by a kernel: no host-to-device copy waits)."""
+    if not isinstance(v, torch.Tensor):
+        return torch.full((), f32(v), dtype=torch.float32, device=dev)
+    if v.device != dev or v.dtype != torch.float32 or v.dim() != 0:
+        raise ValueError(f"{name}: a float or a 0-dim float32 tensor on "
+                         f"{dev}, got {v.dtype} {tuple(v.shape)} on "
+                         f"{v.device}")
+    return v
 
 
 def _write(xin, xout, x_new, cnt, cnt_out) -> None:
@@ -242,31 +319,39 @@ def _write(xin, xout, x_new, cnt, cnt_out) -> None:
 # --------------------------------------------------------------------------
 
 def jacobi_edge_pass_plain(plan: EdgePassPlan, xin: torch.Tensor,
-                           xout: torch.Tensor, k: float, omega: float,
+                           xout: torch.Tensor, k, omega,
                            cnt_out: Optional[torch.Tensor] = None) -> None:
     x, w = xin[:, :3], xin[:, 3]
     delta, cnt = edge_jacobi_deltas(x, w, plan.edges.long(), plan.rest,
                                     _stiffness(plan, k), plan.num_particles)
-    _write(xin, xout, apply_delta(x, w, delta, cnt, omega), cnt, cnt_out)
+    _write(xin, xout, apply_delta(x, w, delta, cnt, float(omega)), cnt,
+           cnt_out)
+
+
+def _launch(plan, arity, xin, xout, k, omega, cnt_out, name) -> None:
+    """One launch of the tiled pass kernel: one CTA per tile."""
+    t, dev = plan.tiles, xin.device
+    rc = _lib().sbs_jacobi_pass(
+        arity, _ptr(xin), _ptr(xout), _ptr(t.row_ptr), _ptr(t.rows),
+        _ptr(t.own_ptr), _ptr(t.slot_end), _ptr(t.con_ptr), _ptr(t.rec),
+        _ptr(t.rest), _ptr(t.k), t.num_tiles, t.smem_bytes, _ptr(k),
+        _ptr(omega), _ptr(cnt_out), _stream(dev))
+    _raise_on(rc, name)
 
 
 def jacobi_edge_pass(plan: EdgePassPlan, xin: torch.Tensor,
-                     xout: torch.Tensor, k: float, omega: float,
+                     xout: torch.Tensor, k, omega,
                      cnt_out: Optional[torch.Tensor] = None) -> None:
     """One distance gather + apply stage from snapshot xin into xout.
     k: the stiffness (float32-exact; with a per-constraint table, its
     multiplier); omega: the SOR factor."""
     dev = _check_pass(plan, xin, xout, cnt_out)
     _check_edge_plan(plan, dev)
+    k, omega = _scalar(k, "k", dev), _scalar(omega, "omega", dev)
     if dev.type == "cpu":
         return jacobi_edge_pass_plain(plan, xin, xout, k, omega, cnt_out)
-    f = ctypes.c_float
-    rc = _lib().sbs_jacobi_edge_pass(
-        _ptr(xin), _ptr(xout), _ptr(plan.row), _ptr(plan.ent),
-        _ptr(plan.rest), _ptr(plan.k), plan.num_particles, f(k), f(omega),
-        _ptr(cnt_out), _stream(dev))
-    _raise_on(rc, "jacobi_edge_pass")
-    jacobi_edge_pass.launches += 1
+    _launch(plan, 2, xin, xout, k, omega, cnt_out, "jacobi_edge_pass")
+    count_launch(jacobi_edge_pass)
 
 
 jacobi_edge_pass.launches = 0
@@ -277,31 +362,26 @@ jacobi_edge_pass.launches = 0
 # --------------------------------------------------------------------------
 
 def jacobi_tet_pass_plain(plan: TetPassPlan, xin: torch.Tensor,
-                          xout: torch.Tensor, k: float, omega: float,
+                          xout: torch.Tensor, k, omega,
                           cnt_out: Optional[torch.Tensor] = None) -> None:
     x, w = xin[:, :3], xin[:, 3]
     delta, cnt = tet_jacobi_deltas(x, w, plan.tets.long(), plan.rest,
                                    _stiffness(plan, k), plan.num_particles)
-    _write(xin, xout, apply_delta(x, w, delta, cnt, omega), cnt, cnt_out)
+    _write(xin, xout, apply_delta(x, w, delta, cnt, float(omega)), cnt,
+           cnt_out)
 
 
 def jacobi_tet_pass(plan: TetPassPlan, xin: torch.Tensor,
-                    xout: torch.Tensor, k: float, omega: float,
+                    xout: torch.Tensor, k, omega,
                     cnt_out: Optional[torch.Tensor] = None) -> None:
     """One volume gather + apply stage from snapshot xin into xout."""
     dev = _check_pass(plan, xin, xout, cnt_out)
     _check_tet_plan(plan, dev)
+    k, omega = _scalar(k, "k", dev), _scalar(omega, "omega", dev)
     if dev.type == "cpu":
         return jacobi_tet_pass_plain(plan, xin, xout, k, omega, cnt_out)
-    nt = plan.rest.shape[0]
-    glam = torch.empty((4 * nt, 4), dtype=torch.float32, device=dev)
-    f = ctypes.c_float
-    rc = _lib().sbs_jacobi_tet_pass(
-        _ptr(xin), _ptr(xout), _ptr(plan.tets), _ptr(plan.rest),
-        _ptr(plan.k), _ptr(glam), _ptr(plan.row), _ptr(plan.slot),
-        plan.num_particles, nt, f(k), f(omega), _ptr(cnt_out), _stream(dev))
-    _raise_on(rc, "jacobi_tet_pass")
-    jacobi_tet_pass.launches += 1
+    _launch(plan, 4, xin, xout, k, omega, cnt_out, "jacobi_tet_pass")
+    count_launch(jacobi_tet_pass)
 
 
 jacobi_tet_pass.launches = 0

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..collide.primitives import cross3
+from . import count_launch
 from . import sweep_plan as sp
 from .sweep_plan import BLOCK, LANES, GpuPlan
 
@@ -314,7 +315,7 @@ def w_fill(plan: DevicePlan, xw: torch.Tensor) -> torch.Tensor:
     rc = _lib().sbs_w_fill(_ptr(plan.verts), _ptr(plan.counts), _ptr(xw),
                            _ptr(out), n, plan.arity, _stream(dev))
     _raise_on(rc, "w_fill")
-    w_fill.launches += 1
+    count_launch(w_fill)
     return out
 
 
@@ -461,7 +462,7 @@ def edge_sweep(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
     if dev.type == "cpu":
         return edge_sweep_plain(plan, xw, lam, wsum, alpha, local_iters)
     _launch_sweep("edge_sweep", plan, xw, lam, wsum, alpha, local_iters, 0)
-    edge_sweep.launches += 1
+    count_launch(edge_sweep)
 
 
 edge_sweep.launches = 0
@@ -478,7 +479,7 @@ def tet_sweep(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
         return tet_sweep_plain(plan, xw, lam, wtab, alpha, local_iters)
     _launch_sweep("tet_sweep", plan, xw, lam, wtab, alpha, local_iters,
                   int(plan.split))
-    tet_sweep.launches += 1
+    count_launch(tet_sweep)
 
 
 tet_sweep.launches = 0
@@ -509,7 +510,7 @@ def legacy_edge_sweep(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
     if dev.type == "cpu":
         return edge_sweep_plain(plan, xw, lam, None, alpha)
     _launch_sweep("legacy_edge_sweep", plan, xw, lam, None, alpha, 1, 0)
-    legacy_edge_sweep.launches += 1
+    count_launch(legacy_edge_sweep)
 
 
 legacy_edge_sweep.launches = 0
@@ -523,7 +524,7 @@ def legacy_tet_sweep(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
     if dev.type == "cpu":
         return tet_sweep_plain(plan, xw, lam, None, alpha)
     _launch_sweep("legacy_tet_sweep", plan, xw, lam, None, alpha, 1, 0)
-    legacy_tet_sweep.launches += 1
+    count_launch(legacy_tet_sweep)
 
 
 legacy_tet_sweep.launches = 0

@@ -15,6 +15,19 @@ backend ran this stage as XLA ops (``jacobi_pallas.py:187-203``).  Body
 transforms and self / surface collision are not supported here
 (``make_jacobi_step`` routes transforms to 'gather').
 
+On a CUDA device one substep -- predict, the iterations' passes, collide
+stages and Chebyshev blends, commit -- is captured once as a CUDA graph
+(``solver/graphs.py``) and replayed, so the host launches one graph per
+substep instead of ~40 kernels and ops (the JAX package compiles the same
+loop into one XLA program, ``jacobi_pallas.py:205-262``).  The graphs run
+on static tables of the step; ``run_carry`` copies the carry, the
+runtime collider poses and the step-time scalars (k_edge, k_vol, omega,
+sdt, 1 / sdt: a device tensor that the kernels and the elementwise ops
+read) in before the replays and the carry out after them.  So the only
+key of a graph is which of the two tables holds the substep's start:
+scalar overrides and poses that change every step capture nothing new.
+On the CPU the substep runs eagerly on the plain versions.
+
 Internal layout (one device, public vertex order, no permutation):
   xw : (V, 4) f32 -- positions + inverse mass (the current snapshot)
   xs : (V, 4) f32 -- the other table of the double-buffered passes
@@ -36,6 +49,7 @@ from ..core.state import SimState, SolverParams, f32, resolve_device
 from ..kernels import collide as kc
 from ..kernels import jacobi as kj
 from .accel import chebyshev_loop
+from .graphs import GraphCache
 
 
 class PassCarry(NamedTuple):
@@ -61,12 +75,12 @@ class JacobiPassStep:
         dev = self.device = resolve_device(device)
         self.params = params
         V = topology.num_particles
-        self.edge_plan = (kj.edge_pass_plan(V, topology.edges,
-                                            topology.edge_rest, edge_k, dev)
-                          if topology.num_edges else None)
-        self.tet_plan = (kj.tet_pass_plan(V, topology.tets,
-                                          topology.tet_rest_vol, tet_k, dev)
-                         if topology.num_tets else None)
+        self.edge_plan = (kj.edge_pass_plan(
+            V, topology.edges, topology.edge_rest, edge_k, dev,
+            vertices=topology.vertices) if topology.num_edges else None)
+        self.tet_plan = (kj.tet_pass_plan(
+            V, topology.tets, topology.tet_rest_vol, tet_k, dev,
+            vertices=topology.vertices) if topology.num_tets else None)
         self._per_k = (edge_k is not None, tet_k is not None)
         self.colliders = None if colliders is None else colliders.to(dev)
         self.ground = kc.make_ground(params)
@@ -74,6 +88,16 @@ class JacobiPassStep:
             colliders is not None and colliders.count > 0)
         self._gravity = torch.tensor(params.gravity, dtype=torch.float32,
                                      device=dev)
+        # on the card, the graphs' static tables: the two pass tables, the
+        # velocities, the packed colliders, the step-time scalars
+        self._graphs = GraphCache(dev, kept=2)   # by start table
+        self._buf = None if dev.type != "cuda" else dict(
+            x=(torch.zeros((V, 4), device=dev),
+               torch.zeros((V, 4), device=dev)),
+            vv=torch.zeros((V, 3), device=dev),
+            packed=kc.pack_colliders(self.colliders, dev),
+            scal=torch.zeros(5, device=dev))
+        self._scal_now = None                   # the scalars in _buf["scal"]
 
     # ---- public <-> internal layout --------------------------------------
 
@@ -102,27 +126,25 @@ class JacobiPassStep:
 
     # ---- stepping ---------------------------------------------------------
 
-    def run_carry(self, carry: PassCarry, dt, n: int, edge_stiffness=None,
-                  volume_stiffness=None, sor_omega=None,
-                  colliders_rt: Optional[Colliders] = None) -> PassCarry:
-        """n steps on the carry's tables, in place; returns the carry with
-        the current table first."""
+    def _scalars(self, dt, edge_stiffness=None, volume_stiffness=None,
+                 sor_omega=None) -> tuple:
+        """(k_edge, k_vol, omega, sdt, 1 / sdt) as float32-exact floats."""
         p = self.params
         k_edge = f32((1.0 if self._per_k[0] else p.edge_stiffness)
                      if edge_stiffness is None else edge_stiffness)
         k_vol = f32((1.0 if self._per_k[1] else p.volume_stiffness)
                     if volume_stiffness is None else volume_stiffness)
         omega = f32(p.sor_omega if sor_omega is None else sor_omega)
-        cols = kc.runtime_colliders(self.colliders, colliders_rt,
-                                    self.device)
-        packed = kc.pack_colliders(cols, self.device)
-
-        ss = max(1, p.substeps)
-        sdt = np.float32(dt) / np.float32(ss)
+        sdt = np.float32(dt) / np.float32(max(1, p.substeps))
         inv_dt = float(np.float32(1.0) / sdt) if sdt > 0 else 0.0
-        sdt = float(sdt)
-        bufs = [carry.xw, carry.xs]
-        free = carry.xw[:, 3:4] != 0.0
+        return k_edge, k_vol, omega, float(sdt), inv_dt
+
+    def _substep(self, bufs, x, vv, packed, scal) -> torch.Tensor:
+        """One substep from table ``x`` (one of ``bufs``), in place:
+        predict, the iterations, commit; returns the table that holds the
+        result.  ``scal``: (5,) f32, ``_scalars`` on the device."""
+        k_edge, k_vol, omega, sdt, inv_dt = scal.unbind()
+        free = x[:, 3:4] != 0.0
 
         def iteration(x):
             y = bufs[1] if x is bufs[0] else bufs[0]
@@ -140,18 +162,61 @@ class JacobiPassStep:
             x[:, :3] = rows
             return x
 
-        x, vv = carry.xw, carry.vv
-        for _ in range(int(n) * ss):
-            # PreSolve (SoftBodySolver.cs:349-362): pinned velocities zeroed
-            xp = x[:, :3].clone()
-            vv.copy_(torch.where(free, vv + self._gravity * sdt, 0.0))
-            x[:, :3] = torch.where(free, xp + vv * sdt, xp)
-            x = chebyshev_loop(iteration, x, p,
-                               get=lambda t: t[:, :3].clone(), set_=set_rows)
-            # PostSolve (SoftBodySolver.cs:364-377)
-            vv.copy_(torch.where(free, (x[:, :3] - xp) * inv_dt, 0.0))
+        # PreSolve (SoftBodySolver.cs:349-362): pinned velocities zeroed
+        xp = x[:, :3].clone()
+        vv.copy_(torch.where(free, vv + self._gravity * sdt, 0.0))
+        x[:, :3] = torch.where(free, xp + vv * sdt, xp)
+        x = chebyshev_loop(iteration, x, self.params,
+                           get=lambda t: t[:, :3].clone(), set_=set_rows)
+        # PostSolve (SoftBodySolver.cs:364-377)
+        vv.copy_(torch.where(free, (x[:, :3] - xp) * inv_dt, 0.0))
+        return x
+
+    def _run_eager(self, carry: PassCarry, substeps: int, scalars,
+                   packed) -> PassCarry:
+        scal = torch.tensor(scalars, dtype=torch.float32, device=self.device)
+        bufs = (carry.xw, carry.xs)
+        x = carry.xw
+        for _ in range(substeps):
+            x = self._substep(bufs, x, carry.vv, packed, scal)
         return PassCarry(xw=x, xs=bufs[1] if x is bufs[0] else bufs[0],
-                         vv=vv)
+                         vv=carry.vv)
+
+    def _run_graphed(self, carry: PassCarry, substeps: int, scalars,
+                     packed) -> PassCarry:
+        b = self._buf
+        if scalars != self._scal_now:     # copied only when they change
+            b["scal"].copy_(torch.tensor(scalars, dtype=torch.float32)
+                            .pin_memory(), non_blocking=True)
+            self._scal_now = scalars
+        b["x"][0].copy_(carry.xw)
+        b["vv"].copy_(carry.vv)
+        b["packed"].copy_(packed)
+
+        def substep():                 # the index of the result's table
+            x = self._substep(b["x"], b["x"][cur], b["vv"], b["packed"],
+                              b["scal"])
+            return 0 if x is b["x"][0] else 1
+        cur = 0
+        for _ in range(substeps):
+            cur = self._graphs.run(cur, substep)
+        carry.xw.copy_(b["x"][cur])
+        carry.vv.copy_(b["vv"])
+        return carry
+
+    def run_carry(self, carry: PassCarry, dt, n: int, edge_stiffness=None,
+                  volume_stiffness=None, sor_omega=None,
+                  colliders_rt: Optional[Colliders] = None) -> PassCarry:
+        """n steps on the carry's tables, in place; returns the carry with
+        the current table first."""
+        scalars = self._scalars(dt, edge_stiffness, volume_stiffness,
+                                sor_omega)
+        packed = kc.pack_colliders(
+            kc.runtime_colliders(self.colliders, colliders_rt, self.device),
+            self.device)
+        substeps = int(n) * max(1, self.params.substeps)
+        run = self._run_eager if self._buf is None else self._run_graphed
+        return run(carry, substeps, scalars, packed)
 
     def __call__(self, state: SimState, dt, edge_stiffness=None,
                  volume_stiffness=None, sor_omega=None,

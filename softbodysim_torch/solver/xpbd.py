@@ -15,9 +15,10 @@ backends compute the same coloured sweep with XLA ops (two forms for
 XLA's cost on a TPU); here it is plain tensor ops, on either device, and
 one form serves both names.  On the card one iteration's
 colour passes and ground clamp -- tens of tiny ops per colour -- are
-captured once as a CUDA graph (per pair of compliance scalars) and
-replayed, so the host launches one graph instead of every op (the JAX
-package compiles the same loop into one XLA program).  Every backend
+captured once as a CUDA graph (per pair of compliance scalars;
+``solver/graphs.py``) and replayed, so the host launches one graph
+instead of every op (the JAX package compiles the same loop into one XLA
+program).  Every backend
 applies colliders (world space, particle radius 0) after the ground clamp
 in each iteration; on a CUDA device that stage is the fused collide
 kernel (``kernels/collide.py``), launched outside the graph, on the CPU its
@@ -36,6 +37,7 @@ from ..collide.primitives import Colliders, cross3, dot3
 from ..core.state import SimState, SolverParams, f32, resolve_device
 from ..kernels import collide as kc
 from ..kernels.sweep import EPS_LEN, EPS_WSUM, SIXTH
+from .graphs import GraphCache
 from .select import resolve_backend
 
 
@@ -114,7 +116,7 @@ class ColouredStep:
         self._gravity = torch.tensor(params.gravity, dtype=torch.float32,
                                      device=dev)
         V = topology.num_particles
-        self._graphs = {}        # (e_alpha, t_alpha) -> (graph, output)
+        self._graphs = GraphCache(dev, kept=4)   # by (e_alpha, t_alpha)
 
         def i64(a):
             return torch.as_tensor(np.asarray(a, np.int64)).to(dev)
@@ -189,33 +191,6 @@ class ColouredStep:
                 xs[:, 2]], 1)
         return xs
 
-    _GRAPHS_KEPT = 4
-
-    def _graph(self, e_alpha, t_alpha):
-        """(graph, output) of ``_solve`` on the static buffers, captured at
-        first use of these compliance scalars (the oldest of
-        _GRAPHS_KEPT is dropped)."""
-        hit = self._graphs.get((e_alpha, t_alpha))
-        if hit is not None:
-            return hit
-        b, dev = self._buf, self.device
-        # one eager run on a side stream first (lazy set-up stays out of
-        # the capture), on copies: capture records, it does not run
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._solve(b["x"].clone(), b["w"],
-                        {k: v.clone() for k, v in b["lam"].items()},
-                        e_alpha, t_alpha)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = self._solve(b["x"], b["w"], b["lam"], e_alpha, t_alpha)
-        if len(self._graphs) >= self._GRAPHS_KEPT:
-            self._graphs.pop(next(iter(self._graphs)))
-        self._graphs[(e_alpha, t_alpha)] = (graph, out)
-        return graph, out
-
     # ---- stepping ---------------------------------------------------------
 
     def __call__(self, state: SimState, dt, edge_compliance=None,
@@ -262,8 +237,12 @@ class ColouredStep:
                 else:
                     lam[fam] = pub
         if graphed:
-            self._buf["w"].copy_(w)
-            graph, out = self._graph(e_alpha, t_alpha)
+            b = self._buf
+            b["w"].copy_(w)
+
+            def solve():
+                return self._solve(b["x"], b["w"], b["lam"], e_alpha,
+                                   t_alpha)
 
         x, v = state.x, state.v
         for _ in range(ss):
@@ -272,9 +251,8 @@ class ColouredStep:
             xs = torch.where(pinned, x, x + v * sdt)
             for _ in range(p.iterations):
                 if graphed:
-                    self._buf["x"].copy_(xs)
-                    graph.replay()
-                    xs = out
+                    b["x"].copy_(xs)
+                    xs = self._graphs.run((e_alpha, t_alpha), solve)
                 else:
                     xs = self._solve(xs, w, lam, e_alpha, t_alpha)
                 if packed is not None:

@@ -38,10 +38,12 @@ def test_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for must in ("softbodysim_torch/kernels/sweep.py",
                  "softbodysim_torch/kernels/jacobi.py",
+                 "softbodysim_torch/kernels/jacobi_plan.py",
                  "softbodysim_torch/kernels/collide.py",
                  "softbodysim_torch/collide/primitives.py",
                  "softbodysim_torch/core/adjacency.py",
                  "softbodysim_torch/solver/accel.py",
+                 "softbodysim_torch/solver/graphs.py",
                  "softbodysim_torch/solver/jacobi.py",
                  "softbodysim_torch/solver/jacobi_pass.py",
                  "softbodysim_torch/solver/xpbd_sweep.py",

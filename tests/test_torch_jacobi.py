@@ -212,7 +212,8 @@ def test_plain_pass_matches_jax(family, perk):
                                        np.float32(omega)))
 
     make = kj.edge_pass_plan if family == "edges" else kj.tet_pass_plan
-    plan = make(nv, cons, rest, table, device="cpu")
+    plan = make(nv, cons, rest, table, device="cpu",
+                vertices=topo.vertices)
     xin = torch.from_numpy(np.concatenate([x, w[:, None]], 1))
     xout = torch.full_like(xin, np.nan)
     cnt_out = torch.zeros(nv, dtype=torch.int32)
@@ -230,7 +231,8 @@ def test_plain_pass_matches_jax(family, perk):
 def test_pass_wrappers_validate_inputs():
     topo = sbt.meshes.tet_cube(2, 2, 2)
     nv = topo.num_particles
-    ep = kj.edge_pass_plan(nv, topo.edges, topo.edge_rest, device="cpu")
+    ep = kj.edge_pass_plan(nv, topo.edges, topo.edge_rest, device="cpu",
+                           vertices=topo.vertices)
     xin = torch.zeros((nv, 4))
     with pytest.raises(ValueError, match="snapshot"):
         kj.jacobi_edge_pass(ep, xin, xin, 0.9, 1.4)
@@ -243,7 +245,7 @@ def test_pass_wrappers_validate_inputs():
                             torch.zeros(nv))
     with pytest.raises(ValueError):
         kj.tet_pass_plan(nv, topo.tets, topo.tet_rest_vol,
-                         k=np.ones(3), device="cpu")
+                         k=np.ones(3), device="cpu", vertices=topo.vertices)
 
 
 # --------------------------------------------------------------------------

@@ -6,9 +6,12 @@ card and no jax:
 
 Without a card the card tests skip (the CUDA kernels have no CPU mode).
 A sweep over its dependency schedule on many CTAs equals the same kernel
-on one CTA bit for bit.  Tolerances on the card: sweeps (both widths) and
-Jacobi passes, positions 1e-5 absolute (the kernel sums a vertex's
-contributions in CSR order, index_add_ in atomic order), lambdas 1e-5
+on one CTA bit for bit; a Jacobi pass gives the same bits on every
+launch, and the pass step's CUDA graph replays equal its eager run bit for
+bit.  Tolerances on the card: sweeps (both widths) and Jacobi passes,
+positions 1e-5 absolute (the kernel sums a vertex's contributions in its
+plan's order, index_add_ in atomic order; the Jacobi kernels round as the
+TPU kernels, the plain versions as the segment formulation), lambdas 1e-5
 relative to the largest |lambda|, Jacobi counts equal; collide 1e-6 (the
 same arithmetic, no FMA on either side); whole steps on the card against
 the CPU 1e-4 over 10 steps.
@@ -221,7 +224,8 @@ def test_jacobi_passes_match_plain_on_card(family, size, perk, cuda_device):
                         kj.jacobi_edge_pass_plain) if family == "edges"
                        else (kj.tet_pass_plan, kj.jacobi_tet_pass,
                              kj.jacobi_tet_pass_plain))
-    plan = make(topo.num_particles, cons, rest, table, device=cuda_device)
+    plan = make(topo.num_particles, cons, rest, table, device=cuda_device,
+                vertices=topo.vertices)
     V = topo.num_particles
     xa, xb = torch.empty_like(xin), torch.empty_like(xin)
     ca = torch.zeros(V, dtype=torch.int32, device=cuda_device)
@@ -234,6 +238,126 @@ def test_jacobi_passes_match_plain_on_card(family, size, perk, cuda_device):
     assert not torch.equal(xa, xin)
     torch.testing.assert_close(xa, xb, rtol=0, atol=1e-5)
     assert torch.equal(ca, cb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["edges", "tets"])
+def test_jacobi_pass_tiles_on_card(family, cuda_device):
+    """The tiled pass kernel with per-constraint stiffness against its
+    plain version (1e-5, counts equal), and 20 launches from one snapshot
+    equal bit for bit (a fixed summation order, no atomics)."""
+    topo, xin, rng = _jacobi_table(SIZES["medium"], cuda_device, seed=4)
+    cons, rest = ((topo.edges, topo.edge_rest) if family == "edges"
+                  else (topo.tets, topo.tet_rest_vol))
+    make, fn, plain = ((kj.edge_pass_plan, kj.jacobi_edge_pass,
+                        kj.jacobi_edge_pass_plain) if family == "edges"
+                       else (kj.tet_pass_plan, kj.jacobi_tet_pass,
+                             kj.jacobi_tet_pass_plain))
+    V = topo.num_particles
+    plan = make(V, cons, rest, rng.uniform(0.2, 1.0, len(cons)),
+                device=cuda_device, vertices=topo.vertices)
+    assert plan.tiles.num_tiles > 1 and kj.ctas_per_sm(plan) >= 2
+    xa, xb = torch.empty_like(xin), torch.empty_like(xin)
+    ca = torch.zeros(V, dtype=torch.int32, device=cuda_device)
+    cb = torch.zeros_like(ca)
+    fn(plan, xin, xa, 0.9, 1.4, ca)
+    plain(plan, xin, xb, 0.9, 1.4, cb)
+    outs = torch.empty((20, V, 4), device=cuda_device)
+    for i in range(20):
+        fn(plan, xin, outs[i], 0.9, 1.4)
+    torch.cuda.synchronize()
+    assert not torch.equal(xa, xin)
+    torch.testing.assert_close(xa, xb, rtol=0, atol=1e-5)
+    assert torch.equal(ca, cb)
+    assert torch.equal(outs, xa.expand_as(outs))
+
+
+def _pass_step(case, device):
+    """A JacobiPassStep on the card and its start state: tet_cube(6) onto
+    a box (optionally Chebyshev-blended), or its edges alone with five
+    iterations (an odd number of passes per substep: the substeps start
+    from alternate tables)."""
+    import dataclasses
+
+    from softbodysim_torch.solver.jacobi_pass import JacobiPassStep
+
+    topo = sbt.meshes.tet_cube(6, 6, 6, size=0.5, center=(0.0, 0.45, 0.0))
+    kw = dict(dialect="jacobi", jacobi_backend="pass")
+    if case == "chebyshev":
+        kw.update(chebyshev=True, chebyshev_rho=0.9, chebyshev_delay=2)
+    if case == "edges_odd":
+        topo = dataclasses.replace(
+            topo, tets=np.zeros((0, 4), np.int32),
+            tet_rest_vol=np.zeros(0, np.float32))
+        kw.update(iterations=5)
+    step = JacobiPassStep(topo, sbt.SolverParams(**kw),
+                          sbt.Colliders.build([BOX], device=device),
+                          device=device)
+    state = sbt.init_state(topo, inv_mass_mode="density", device=device)
+    return step, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cube", "chebyshev", "edges_odd"])
+def test_jacobi_pass_graph_matches_eager_bitwise(case, cuda_device):
+    """``run_carry`` on the card replays one CUDA graph per substep; it
+    equals the same step run eagerly (kernel by kernel) on the same card
+    bit for bit, and counts the same kernel launches (the replays add
+    what their captures recorded)."""
+    from softbodysim_torch.kernels import reset_launch_counts
+
+    step, state = _pass_step(case, cuda_device)
+    graphed, eager = step.pack_state(state), step.pack_state(state)
+    packed = kc.pack_colliders(step.colliders)
+    substeps = step.params.substeps
+    reset_launch_counts()
+    for n in (3, 1, 4):
+        graphed = step.run_carry(graphed, DT, n)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    reset_launch_counts()
+    eager = step._run_eager(eager, 8 * substeps, step._scalars(DT), packed)
+    torch.cuda.synchronize()
+    assert launch_counts() == counts
+    assert len(step._graphs) == (2 if case == "edges_odd" else 1)
+    assert counts["collide"] == 8 * substeps * step.params.iterations
+    assert torch.equal(graphed.xw, eager.xw)
+    assert torch.equal(graphed.vv, eager.vv)
+    assert not torch.equal(graphed.xw[:, :3], state.x)
+
+
+@pytest.mark.cuda
+def test_jacobi_pass_graph_sees_poses_and_overrides(cuda_device):
+    """The replays read the runtime collider poses and the step-time
+    stiffness overrides: a moved box and overrides that change every step
+    give the eager step's bits, differ from the run without them, and
+    capture no further graph."""
+    step, state = _pass_step("cube", cuda_device)
+    moved = sbt.Colliders.build(
+        [sbt.Colliders.box((0.05, 0.14, 0.0), (0.6, 0.1, 0.6))],
+        device=cuda_device)
+    ov = dict(edge_stiffness=0.5, volume_stiffness=0.7, sor_omega=1.1)
+    graphed, eager, plain = (step.pack_state(state) for _ in range(3))
+    ss = step.params.substeps
+    for _ in range(6):
+        graphed = step.run_carry(graphed, DT, 1)
+        plain = step.run_carry(plain, DT, 1)
+    eager = step._run_eager(eager, 6 * ss, step._scalars(DT),
+                            kc.pack_colliders(step.colliders))
+    graphs = len(step._graphs)
+    for i in range(4):
+        o = {key: v + 0.01 * i for key, v in ov.items()}
+        graphed = step.run_carry(graphed, DT, 1, colliders_rt=moved, **o)
+        plain = step.run_carry(plain, DT, 1)
+        eager = step._run_eager(eager, ss, step._scalars(DT, **o),
+                                kc.pack_colliders(moved))
+    torch.cuda.synchronize()
+    assert len(step._graphs) == graphs == 1
+    assert torch.equal(graphed.xw, eager.xw)
+    assert torch.equal(graphed.vv, eager.vv)
+    assert (graphed.xw - plain.xw).abs().max() > 1e-4
+    free = graphed.xw[:, 3] != 0
+    assert graphed.xw[free, 1].min() >= 0.24 - 1e-3       # the moved top
 
 
 @pytest.mark.cuda

@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 import sys
 import time
 
@@ -40,8 +39,8 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+import instrumented_build as ib  # noqa: E402
 import softbodysim_torch as sbt  # noqa: E402
-from softbodysim_torch.kernels import _build  # noqa: E402
 from softbodysim_torch.kernels import sweep as ksw  # noqa: E402
 from softbodysim_torch.solver.xpbd_sweep import SweepStep  # noqa: E402
 
@@ -64,50 +63,29 @@ STAMPS = (
 
 
 def instrumented_source() -> str:
-    src = open(os.path.join(ROOT, "softbodysim_torch", "kernels", "csrc",
-                            "sweep.cu")).read()
+    src = ib.source("sweep.cu")
     for anchor, i, after in STAMPS:
-        if src.count(anchor) != 1:
-            raise RuntimeError(f"sweep.cu changed: no single {anchor!r}")
-        stamp = f"PHASE({i})\n"
-        src = src.replace(anchor, anchor + stamp if after else stamp + anchor)
-    head = "namespace {\n"
-    src = src.replace(head, head + (
+        src = ib.insert(src, anchor, f"PHASE({i})\n", "sweep.cu",
+                        before=not after)
+    src = ib.insert(src, "namespace {\n", (
         "__device__ unsigned long long g_phase[9];\n"
         "#define PHASE(i) if (t == 0) { const long long c_ = clock64(); "
-        "acc_[i] += c_ - last_; last_ = c_; }\n"), 1)
+        "acc_[i] += c_ - last_; last_ = c_; }\n"), "sweep.cu")
     loop = "  for (int k = 0; k < n; ++k) {\n"
     src = src.replace(loop, "  long long acc_[8] = {0, 0, 0, 0, 0, 0, 0, 0};"
                       "\n  long long last_ = clock64();\n" + loop, 1)
     end = STAMPS[-1][0] + "PHASE(7)\n  }\n"
-    src = src.replace(end, end + (
+    src = ib.insert(src, end, (
         "  if (t == 0) {\n    for (int i = 0; i < 8; ++i)\n"
         "      atomicAdd(&g_phase[i], (unsigned long long)acc_[i]);\n"
-        "    atomicAdd(&g_phase[8], (unsigned long long)n);\n  }\n"), 1)
-    return src.replace('extern "C" {\n', (
-        'extern "C" {\n'
+        "    atomicAdd(&g_phase[8], (unsigned long long)n);\n  }\n"),
+        "sweep.cu")
+    return ib.insert(src, 'extern "C" {\n', (
         "int sbs_phase_take(unsigned long long* out) {\n"
         "  unsigned long long zero[9] = {0};\n"
         "  cudaMemcpyFromSymbol(out, g_phase, sizeof(zero));\n"
         "  cudaMemcpyToSymbol(g_phase, zero, sizeof(zero));\n"
-        "  return (int)cudaDeviceSynchronize();\n}\n"), 1)
-
-
-def build_library() -> ctypes.CDLL:
-    """The kernel library with the instrumented sweep.cu, built before
-    anything loads the plain one: the wrappers then launch its kernels."""
-    out = os.path.join(ROOT, "softbodysim_torch", "_build", "profile")
-    os.makedirs(out, exist_ok=True)
-    path = os.path.join(out, "sweep.cu")
-    with open(path, "w") as f:
-        f.write(instrumented_source())
-    _build.SOURCES = tuple(path if os.path.basename(src) == "sweep.cu"
-                           else src for src in _build.SOURCES)
-    _build.BUILD_DIR = out
-    lib = _build.load()
-    lib.sbs_phase_take.restype = ctypes.c_int
-    lib.sbs_phase_take.argtypes = [ctypes.c_void_p]
-    return lib
+        "  return (int)cudaDeviceSynchronize();\n}\n"), "sweep.cu")
 
 
 def main() -> int:
@@ -115,7 +93,7 @@ def main() -> int:
         print("needs an NVIDIA GPU", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    lib = build_library()
+    lib = ib.build("sweep.cu", instrumented_source(), "profile")
     topo = sbt.meshes.tet_cube(47, 47, 47, size=1.0, center=(0.0, 2.0, 0.0))
     params = sbt.SolverParams(dialect="xpbd", substeps=8, iterations=1)
     rng = np.random.default_rng(0)
@@ -168,10 +146,7 @@ def main() -> int:
                       "block: " + ", ".join(
                           f"{n} {c:.0f}" for n, c in zip(PHASES, per[1:]))
                       + f"; all {sum(per):.0f}", flush=True)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip())
+    print(ib.card_clocks())
     return 0
 
 
