@@ -17,11 +17,21 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
 4. Jacobi main path on the same cube: Engine(jacobi, the in-engine
    tunings, a floor box collider, device="cuda") with
    jacobi_backend="auto" -> the pass backend, one CUDA graph replay per
-   substep; run(32) then step(); check (a graph was captured) and time
-   three warm 20-step windows; then, as diagnostics, three windows of the
-   same step run eagerly (kernel by kernel) on a copy of its state, and
-   three of Engine.step one step at a time with stiffness and omega
-   overrides that change every step (no new graph may be captured).
+   substep, the collide stage fused into each iteration's tet pass; run(32)
+   then step(); check (a graph was captured, the stand-alone collide
+   kernel launched 0 times) and time three warm 20-step windows; then, as
+   diagnostics, three windows of the same step run eagerly (kernel by
+   kernel) on a copy of its state, and three of Engine.step one step at a
+   time with stiffness and omega overrides that change every step (no new
+   graph may be captured).  Then the pass path's other variants on the
+   same cube, 4 steps each: its edges alone on the floor box (the collide
+   stage fused into the edge pass) and the whole cube with no ground and
+   no colliders (no collide stage); and tet_ball(6, 0.3) (V = 40,963,
+   E = 163,842, T = 81,920; the centre in every tet, so a heavy vertex)
+   on the floor box with jacobi_backend="auto" -> 'pass': 10 steps, each
+   against the same Engine on the CPU's 'gather' backend within 1e-4 m or
+   ten times the CPU's own spread at that step ('gather' against
+   'segment'), printed per step; then three warm 20-step windows.
 5. XPBD legacy path on the same cube: Engine(xpbd, 8 substeps, 1
    iteration, superblocks=False, a box just under the body) -> the sweep
    backend on the 128-wide legacy plans (SweepStep, carry API); print the
@@ -36,8 +46,10 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
 8. XPBD coloured Gauss-Seidel on the card: 'auto' (-> 'gather'; 'scatter'
    resolves to it too) with SampleScene's body on its box (the collide
    kernel launches, the body rests on the box; then three warm 2-step
-   windows timed), then tet_cube(3) against the oracle's serial sweep in
-   colour order, 10 steps.
+   windows timed, and, as a diagnostic, three 2-step windows of
+   Engine.step with an edge compliance that changes every step: ms/step
+   and the CUDA graphs captured, none after the first), then tet_cube(3)
+   against the oracle's serial sweep in colour order, 10 steps.
 9. SampleScene's body (tet_ball(2, 0.3) at (0, 1, 0), density 0.2) on its
    box through the jacobi gather backend, which launches the collide
    kernel.
@@ -47,18 +59,23 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
 11. Every kernel at north-star shapes against its plain PyTorch version
    on the card, from one predicted, perturbed state (the Jacobi ones with
    a box collider and the ground); time both.  Each Jacobi pass prints
-   its tile plan (build time, tiles, largest tile, shared memory, CTAs
-   per SM) and must give the same bits on 20 launches from one snapshot.
+   its tile plan (build time, tiles, largest tile, shared memory, heavy
+   vertices, CTAs per SM) and must give the same bits on 20 launches from
+   one snapshot; each pass with the collide stage fused (the floor box, a
+   sphere and a capsule, the body moved into them) must equal the pass
+   followed by the stand-alone collide kernel bit for bit on 20 launches.
    Each sweep kernel also
    runs its plan's dependency schedule on the card's Q CTAs and on one
    CTA (plan order): 20 back-to-back launches each from the same state,
    which must agree bit for bit; print each schedule (Q, CTAs used,
    levels, length in blocks) and both times beside the earlier one-CTA
    design's.
-12. One profiled window of each main path's warm Engine, and of the
+12. One profiled window of each main path's warm Engine, of the jacobi
+   Engine on tet_ball(6) and of the
    coloured step on SampleScene's body (torch.profiler: device time per
    kernel, the device's busy share of the timed window); the jacobi
-   window must name both Jacobi pass kernels inside its graph replays.
+   window must name the edge pass and the tet pass with its collide stage
+   inside its graph replays.
    It comes last of the timings: once the profiler has run, the host's
    launches are slower.
 
@@ -113,7 +130,10 @@ FP32_OPS_PER_S = 67e12
 #   lambda = (-k C) / w), a few ulp at |x| ~ 2 m: within 1e-5 m, and the
 #   per-particle counts equal.
 # - collide: the same arithmetic in the same order, no FMA on either side:
-#   within 1e-6 m.
+#   within 1e-6 m.  The pass with the collide stage fused runs the
+#   stand-alone kernel's code (csrc/collide_math.cuh) on the row it
+#   computed: bit for bit the pass followed by that kernel, and its plain
+#   version (the plain pass, then the plain stage) within the passes' 1e-5.
 X_TOL = 1e-4
 LAM_REL_TOL = 1e-3
 PASS_TOL = 1e-5
@@ -144,6 +164,11 @@ LEDGE_GAP = 0.05
 # ~19 steps; its mesh has 162 edge and 320 tet colours (every tet holds
 # the centre vertex), ~6k colour passes per step of plain tensor ops
 COLOURED_STEPS = 24
+# tet_ball(6, 0.3) from 0.55 m over the floor box: it meets the box in
+# step 5; from step 8 on, as its sliver tets land, two summation orders
+# part by millimetres (the CPU's own 'gather' and 'segment' Engines, which
+# phase 4 runs beside the card at every step: ball_tol)
+BALL_STEPS = 10
 
 
 def card_line() -> str:
@@ -761,11 +786,11 @@ def compare_jacobi_kernels(sbt, topo, device) -> dict:
              topo.tet_rest_vol)):
         t0 = time.perf_counter()
         plan = plans[name] = make(V, cons, rest, device=device,
-                                  vertices=topo.vertices)
+                                  vertices=topo.vertices,
+                                  smem_budget=jacobi_plan.pass_budget(3))
         built = time.perf_counter() - t0
-        tl = plan.tiles
         print(f"{name} tile plan: {built:.2f} s; "
-              f"{jacobi_plan.describe(tl, tl.rest.shape[0], len(cons))}; "
+              f"{jacobi_describe(plan)}; "
               f"{kj.ctas_per_sm(plan)} CTAs per SM", flush=True)
     ep, tp = plans["jacobi_edge_pass"], plans["jacobi_tet_pass"]
     state = sbt.init_state(topo, inv_mass_mode="density", device=device)
@@ -830,6 +855,7 @@ def compare_jacobi_kernels(sbt, topo, device) -> dict:
             err, kernel_ms(lambda: fn(plan, xin, xa, kd, omd), 20),
             events_ms(lambda: plain(plan, xin, xb, k, om), 5), nb, ops)
         report(name, res[name])
+    res.update(compare_fused_passes(sbt, params, passes, xin, device))
 
     # collide: the body moved down into the floor box and through the
     # ground plane, so both stages push
@@ -862,6 +888,88 @@ def compare_jacobi_kernels(sbt, topo, device) -> dict:
     return res
 
 
+def compare_fused_passes(sbt, params, passes, xin, device) -> dict:
+    """Phase 11: each pass with the collide stage fused against the pass
+    followed by the stand-alone collide kernel (bit for bit, 20 launches
+    from one snapshot) and against its plain version, the body moved down
+    into the floor box, a sphere and a capsule and through the ground
+    plane; times the fused pass beside the pass alone on the same
+    inputs.  ``passes``: phase 11's rows (name, plan, k, wrapper, plain,
+    bytes, operations) of the passes alone."""
+    from softbodysim_torch.kernels import collide as kc
+    from softbodysim_torch.kernels import jacobi as kj
+
+    q = (0.1826, 0.3651, 0.5477, 0.7303)
+    packed = kc.pack_colliders(sbt.Colliders.build([
+        sbt.Colliders.box((0.0, 0.1, 0.0), (1.5, 0.1, 1.5)),
+        sbt.Colliders.sphere((0.1, 0.45, 0.0), 0.2),
+        sbt.Colliders.capsule((-0.3, 0.5, 0.2), 0.1, 0.3, rotation=q)],
+        device=device))
+    ground = kc.make_ground(params)
+    xf = xin.clone()
+    xf[:, 1] -= 1.9
+    free = int((xf[:, 3] != 0).sum().item())
+    om = float(np.float32(params.sor_omega))
+    fused_of = {"jacobi_edge_pass": kj.jacobi_edge_pass_collide,
+                "jacobi_tet_pass": kj.jacobi_tet_pass_collide}
+    res = {}
+    for name, plan, k, fn, plain, nb, ops in passes:
+        fused = fused_of[name]
+        kd, omd = (torch.tensor(v, dtype=torch.float32, device=device)
+                   for v in (k, om))
+        want = torch.empty_like(xf)
+        fn(plan, xf, want, kd, omd)
+        moved = want.clone()
+        kc.collide(want, packed, ground)
+        stage = kc.collide_plain(moved.clone(), packed, ground)
+        outs = torch.empty((PASS_LAUNCHES,) + tuple(xf.shape), device=device)
+        for i in range(PASS_LAUNCHES):
+            fused(plan, xf, outs[i], kd, omd, packed, ground)
+        ref = torch.empty_like(xf)
+        plain(plan, xf, ref, k, om)
+        kc.collide_plain(ref, packed, ground)
+        torch.cuda.synchronize()
+        same = bool((outs == want).all().item())
+        err = (outs[0] - ref).abs().max().item()
+        e_stage = (outs[0] - stage).abs().max().item()
+        pushed = int(((want - moved).abs().amax(1) > 0).sum().item())
+        pinned = xf[:, 3] == 0
+        kept = torch.equal(outs[0][pinned], xf[pinned])
+        print(f"{fused.__name__}: {PASS_LAUNCHES} launches bitwise equal to "
+              f"{name} + collide: {same}; max|fused - plain| {err:.3e} m "
+              f"(tol {PASS_TOL}); its collide stage against the plain "
+              f"stage on the pass's rows: {e_stage:.3e} m (tol "
+              f"{COLLIDE_TOL}); {pushed} of {free} free rows pushed; "
+              f"pinned rows untouched: {kept}", flush=True)
+        if not same:
+            raise AssertionError(f"{fused.__name__}: differs from the pass "
+                                 "and the collide kernel")
+        if not (err <= PASS_TOL and e_stage <= COLLIDE_TOL):
+            raise AssertionError(f"{fused.__name__}: disagrees with its "
+                                 f"plain version ({err}, {e_stage})")
+        if not (pushed > 0 and kept):
+            raise AssertionError(f"{fused.__name__}: nothing pushed, or a "
+                                 "pinned row moved")
+        def plain_fused():
+            plain(plan, xf, ref, k, om)
+            kc.collide_plain(ref, packed, ground)
+
+        xa = torch.empty_like(xf)
+        ms = kernel_ms(lambda: fused(plan, xf, xa, kd, omd, packed, ground),
+                       20)
+        alone = kernel_ms(lambda: fn(plan, xf, xa, kd, omd), 20)
+        print(f"{fused.__name__}: {ms:.4f} ms; {name} alone on the same "
+              f"inputs {alone:.4f} ms (+{(ms - alone) * 1e3:.2f} us for "
+              f"the stage)", flush=True)
+        res[fused.__name__] = result(
+            max(err, e_stage), ms, events_ms(plain_fused, 5),
+            # the pass's data and the table; per free row the ground
+            # (~11 flops) and ~80 flops per collider
+            nb + nbytes(packed), ops + (11 + 80 * packed.shape[0]) * free)
+        report(fused.__name__, res[fused.__name__])
+    return res
+
+
 def jacobi_main_path(sbt, topo, device) -> tuple:
     """Phase 4: the jacobi Engine at full width on the card; (launch
     counts, ms/step of a timed window, the warm Engine)."""
@@ -890,13 +998,138 @@ def jacobi_main_path(sbt, topo, device) -> tuple:
         raise AssertionError(f"a free particle is inside the box ({min_y})")
     if not drop > 0.0:
         raise AssertionError("the body did not fall")
-    for name in ("jacobi_edge_pass", "jacobi_tet_pass", "collide"):
+    for name in ("jacobi_edge_pass", "jacobi_tet_pass_collide"):
         if not counts[name] > 0:
             raise AssertionError(f"{name} was not launched: {counts}")
+    # the collide stage runs inside the tet pass
+    for name in ("collide", "jacobi_tet_pass"):
+        if counts[name] != 0:
+            raise AssertionError(f"{name} was launched on the pass path: "
+                                 f"{counts}")
     if not eng._raw_step._graphs:
         raise AssertionError("the pass step captured no CUDA graph")
 
     return counts, timed_window(eng, 20), eng
+
+
+def jacobi_variant_paths(sbt, topo, device) -> dict:
+    """Phase 4, the pass path's other variants on the full cube, 4 steps
+    each: its edges alone on the floor box (the collide stage fused into
+    the edge pass) and the whole cube with no ground and no colliders (no
+    collide stage); their launch counts, added up."""
+    import dataclasses
+
+    edges_only = dataclasses.replace(
+        topo, tets=np.zeros((0, 4), np.int32),
+        tet_rest_vol=np.zeros(0, np.float32))
+    total = collections.Counter()
+    for label, mesh, cols, ground, want, never in (
+            ("edges only, floor box", edges_only, floor_box(sbt, device),
+             True, ("jacobi_edge_pass_collide",),
+             ("jacobi_edge_pass", "collide")),
+            ("no ground, no colliders", topo, None, False,
+             ("jacobi_edge_pass", "jacobi_tet_pass"),
+             ("jacobi_tet_pass_collide", "collide"))):
+        params = sbt.SolverParams(**{**JACOBI, "ground_enabled": ground})
+        reset_counts()
+        eng = sbt.Engine(mesh, params, colliders=cols, device=device)
+        if eng.backend != "pass":
+            raise AssertionError(f"{label}: backend {eng.backend!r}")
+        eng.run(4, DT).block()
+        counts = read_counts()
+        pos = eng.positions()
+        print(f"jacobi pass path, {label}: 4 steps, min y "
+              f"{pos[:, 1].min():.6f}, launches {counts}", flush=True)
+        if not np.isfinite(pos).all():
+            raise AssertionError(f"{label}: non-finite positions")
+        for name in want:
+            if not counts[name] > 0:
+                raise AssertionError(f"{label}: {name} was not launched")
+        for name in never:
+            if counts[name] != 0:
+                raise AssertionError(f"{label}: {name} was launched")
+        total.update(counts)
+    return dict(total)
+
+
+def jacobi_ball_path(sbt, device) -> tuple:
+    """Phase 4: tet_ball(6, 0.3) (every tet holds the centre vertex) on the
+    floor box with jacobi_backend="auto" -> 'pass', its centre a heavy
+    vertex; BALL_STEPS steps, each held against the same Engine on the
+    CPU's 'gather' backend at ``ball_tol`` of the CPU's own spread (its
+    'gather' against its 'segment' Engine at that step); then timed;
+    (ms/step, the warm Engine)."""
+    t0 = time.perf_counter()
+    topo = sbt.meshes.tet_ball(6, 0.3, center=(0.0, 0.55, 0.0))
+    print(f"tet_ball(6, 0.3): V={topo.num_particles} E={topo.num_edges} "
+          f"T={topo.num_tets} in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    params = sbt.SolverParams(**JACOBI)
+    reset_counts()
+    t0 = time.perf_counter()
+    eng = sbt.Engine(topo, params, colliders=floor_box(sbt, device),
+                     device=device)
+    if eng.backend != "pass":
+        raise AssertionError(f"backend {eng.backend!r}, expected 'pass'")
+    step = eng._raw_step
+    for plan in (step.edge_plan, step.tet_plan):
+        print(f"tet_ball(6) tile plan: {jacobi_describe(plan)}", flush=True)
+        if plan.tiles.heavy.tolist() != [topo.num_particles - 1]:
+            raise AssertionError("the centre is not the one heavy vertex")
+    cards = []
+    for _ in range(BALL_STEPS):
+        cards.append(eng.run(1, DT).positions())
+    counts = read_counts()
+    print(f"tet_ball(6) pass path: {BALL_STEPS} steps in "
+          f"{time.perf_counter() - t0:.2f} s (incl. set-up), launches "
+          f"{counts}", flush=True)
+    t0 = time.perf_counter()
+    refs = {b: sbt.Engine(topo, params.replace(jacobi_backend=b),
+                          colliders=floor_box(sbt, "cpu"), device="cpu")
+            for b in ("gather", "segment")}
+    rows = []
+    for n, pos in enumerate(cards, 1):
+        want, other = (refs[b].run(1, DT).positions()
+                       for b in ("gather", "segment"))
+        err = float(np.abs(pos - want).max())
+        spread = float(np.abs(want - other).max())
+        rows.append(dict(step=n, card_vs_gather=err,
+                         gather_vs_segment=spread, tol=ball_tol(spread),
+                         finite=bool(np.isfinite(pos).all())))
+    free = eng.state.inv_mass.cpu().numpy() != 0
+    min_y = float(cards[-1][free, 1].min())
+    print(json.dumps({"tet_ball6_per_step": rows}), flush=True)
+    print(f"tet_ball(6): card 'pass' vs CPU 'gather', {BALL_STEPS} steps: "
+          f"max abs err {max(r['card_vs_gather'] for r in rows):.3e}; "
+          f"free min y {min_y:.6f} (box top {FLOOR_BOX_TOP}); CPU runs "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for r in rows:
+        if not (r["finite"] and r["card_vs_gather"] <= r["tol"]):
+            raise AssertionError(f"tet_ball(6): card and CPU disagree: {r}")
+    if not min_y >= FLOOR_BOX_TOP - 1e-3:
+        raise AssertionError(f"tet_ball(6) went into the box ({min_y})")
+    for name in ("jacobi_edge_pass", "jacobi_tet_pass_collide"):
+        if not counts[name] > 0:
+            raise AssertionError(f"{name} was not launched: {counts}")
+    if counts["collide"] != 0:
+        raise AssertionError(f"collide was launched: {counts}")
+    return timed_window(eng, 20), eng
+
+
+def ball_tol(spread: float) -> float:
+    """The card's tolerance against the CPU 'gather' Engine at a step of
+    tet_ball(6) where the CPU's 'gather' and 'segment' Engines part by
+    ``spread``: ORACLE_TOL, or ten times the CPU's own spread where that
+    is larger."""
+    return max(ORACLE_TOL, 10.0 * spread + 1e-6)
+
+
+def jacobi_describe(plan) -> str:
+    """A pass plan's tile plan in one line (``jacobi_plan.describe``)."""
+    from softbodysim_torch.kernels import jacobi_plan
+
+    return jacobi_plan.describe(plan.tiles, plan.tiles.rest.shape[0],
+                                plan.rest.shape[0])
 
 
 def jacobi_eager_ms(eng, steps: int) -> float:
@@ -946,6 +1179,42 @@ def jacobi_override_ms(eng, steps: int) -> float:
     if len(step._graphs) != graphs:
         raise AssertionError("a step-time override captured a new graph")
     return float(np.median(ms[1:]))
+
+
+def coloured_override_ms(eng, steps: int) -> tuple:
+    """Host-clock ms/step of the warm coloured Engine stepped one step at a
+    time with an edge compliance that changes every step (a diagnostic:
+    the graph reads the compliance scalars from the device, so no step
+    after the first captures a graph); three windows after a warm one,
+    printed, then raise if a window captured a graph; (their median, the
+    CUDA graphs captured in the windows)."""
+    captures = []
+    begin = torch.cuda.CUDAGraph.capture_begin
+
+    def counted(self, *a, **k):
+        captures.append(1)
+        return begin(self, *a, **k)
+
+    torch.cuda.CUDAGraph.capture_begin = counted
+    try:
+        ms = []
+        for w in range(4):
+            if w == 1:
+                captures.clear()
+            t0 = time.perf_counter()
+            for i in range(steps):
+                eng.step(DT, edge_compliance=1e-7 * (1 + w * steps + i))
+            eng.block()
+            ms.append((time.perf_counter() - t0) * 1e3 / steps)
+    finally:
+        torch.cuda.CUDAGraph.capture_begin = begin
+    print(f"coloured, compliance changing every step (diagnostic): ms/step "
+          f"in 3 windows of {steps} steps: "
+          f"{', '.join(f'{m:.4f}' for m in ms[1:])}; CUDA graphs captured "
+          f"in them: {len(captures)}", flush=True)
+    if captures:
+        raise AssertionError("a compliance override captured a graph")
+    return float(np.median(ms[1:])), len(captures)
 
 
 def sample_scene(sbt, device) -> dict:
@@ -1054,6 +1323,11 @@ def main() -> int:
     jo_ms = jacobi_override_ms(j_eng, 20)
     print(f"jacobi tet_cube(47), graphed, one step per call with overrides "
           f"(diagnostic): {jo_ms:.3f} ms/step on {card}", flush=True)
+    v_counts = jacobi_variant_paths(sbt, topo, device)
+    b_ms, b_eng = jacobi_ball_path(sbt, device)
+    print(f"jacobi tet_ball(6, 0.3) (2 substeps, 6 iterations, floor box), "
+          f"graphed: {b_ms:.3f} ms/step, {1e3 / b_ms:.2f} steps/s on {card}",
+          flush=True)
     l_counts, l_ms, l_eng = legacy_main_path(sbt, topo, device)
     print(f"xpbd legacy 128-wide tet_cube(47) (8 substeps, 1 iteration, "
           f"box): {l_ms:.3f} ms/step, {1e3 / l_ms:.2f} steps/s on {card}",
@@ -1065,6 +1339,10 @@ def main() -> int:
     c_ms, c_eng = coloured_checks(sbt, device)
     print(f"xpbd coloured SampleScene body (2 substeps, 6 iterations, box):"
           f" {c_ms:.3f} ms/step on {card}", flush=True)
+    co_ms, co_graphs = coloured_override_ms(c_eng, 2)
+    print(f"xpbd coloured SampleScene body, compliance changing every step "
+          f"(diagnostic): {co_ms:.3f} ms/step, {co_graphs} graphs captured "
+          f"on {card}", flush=True)
     sample_scene(sbt, device)
     jacobi_reference_check(sbt, device)
 
@@ -1076,6 +1354,7 @@ def main() -> int:
     kres.update(compare_jacobi_kernels(sbt, topo, device))
     for label, eng, steps, ms in (("xpbd north star", x_eng, 4, x_ms),
                                   ("jacobi tet_cube(47)", j_eng, 20, j_ms),
+                                  ("jacobi tet_ball(6)", b_eng, 20, b_ms),
                                   ("xpbd legacy 128-wide", l_eng, 2, l_ms),
                                   ("xpbd coloured SampleScene", c_eng, 1,
                                    c_ms)):
@@ -1085,7 +1364,8 @@ def main() -> int:
         print(f"profile of {label}: {time.perf_counter() - t0:.2f} s",
               flush=True)
         # the profiler names the kernels inside the graph replays
-        for kern in ("tile_pass_kernel<2>", "tile_pass_kernel<4>"):
+        for kern in ("tile_pass_kernel<2, false>",
+                     "tile_pass_kernel<4, true>"):
             if eng is j_eng and kern not in prof["device"]:
                 raise AssertionError(f"the jacobi profile names no {kern}")
 
@@ -1101,9 +1381,15 @@ def main() -> int:
         ("jacobi_edge_pass", "jacobi.cu",
          "softbodysim_tpu/kernels/jacobi.py:71", j_counts),
         ("jacobi_tet_pass", "jacobi.cu",
-         "softbodysim_tpu/kernels/jacobi.py:158", j_counts),
+         "softbodysim_tpu/kernels/jacobi.py:158", v_counts),
+        # the passes with the collide stage (collide.py:136) fused
+        ("jacobi_edge_pass_collide", "jacobi.cu",
+         "softbodysim_tpu/kernels/collide.py:136", v_counts),
+        ("jacobi_tet_pass_collide", "jacobi.cu",
+         "softbodysim_tpu/kernels/collide.py:136", j_counts),
+        # the stand-alone stage: the xpbd paths, jacobi gather / segment
         ("collide", "collide.cu", "softbodysim_tpu/kernels/collide.py:136",
-         j_counts),
+         l_counts),
         ("legacy_edge_sweep", "sweep.cu",
          "softbodysim_tpu/kernels/sweep.py:825", l_counts),
         ("legacy_tet_sweep", "sweep.cu",

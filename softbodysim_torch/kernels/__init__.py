@@ -15,8 +15,9 @@ def _wrappers():
     from . import collide, jacobi, sweep
 
     return (sweep.w_fill, sweep.edge_sweep, sweep.tet_sweep,
-            jacobi.jacobi_edge_pass, jacobi.jacobi_tet_pass, collide.collide,
-            sweep.legacy_edge_sweep, sweep.legacy_tet_sweep)
+            jacobi.jacobi_edge_pass, jacobi.jacobi_tet_pass,
+            jacobi.jacobi_edge_pass_collide, jacobi.jacobi_tet_pass_collide,
+            collide.collide, sweep.legacy_edge_sweep, sweep.legacy_tet_sweep)
 
 
 def count_launch(fn) -> None:

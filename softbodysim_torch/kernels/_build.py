@@ -1,13 +1,14 @@
-"""Build and load the CUDA kernels (every ``csrc/*.cu``) as one library.
+"""Build and load the CUDA kernels (every ``csrc/*.cu``, which may include
+the ``csrc/*.cuh`` headers) as one library.
 
 ``nvcc`` compiles each source at first use into an object file -- one
 compiler per source, all started together (a timed-out compiler is
 killed) -- and links them into a shared
 library with a plain C interface (no PyTorch headers, so the build takes
 seconds), placed in ``softbodysim_torch/_build/kernels/`` under a name keyed
-by a hash of all the sources and the flags; ctypes loads it.  A failed
-build raises: there is no fallback to the plain PyTorch versions on a CUDA
-device.
+by a hash of all the sources, the headers and the flags; ctypes loads it.
+A failed build raises: there is no fallback to the plain PyTorch versions
+on a CUDA device.
 """
 
 from __future__ import annotations
@@ -22,7 +23,9 @@ import subprocess
 from concurrent.futures import ThreadPoolExecutor
 
 _KDIR = os.path.dirname(os.path.abspath(__file__))
-SOURCES = tuple(sorted(glob.glob(os.path.join(_KDIR, "csrc", "*.cu"))))
+CSRC = os.path.join(_KDIR, "csrc")
+SOURCES = tuple(sorted(glob.glob(os.path.join(CSRC, "*.cu"))))
+HEADERS = tuple(sorted(glob.glob(os.path.join(CSRC, "*.cuh"))))
 BUILD_DIR = os.path.join(os.path.dirname(_KDIR), "_build", "kernels")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + (
@@ -46,7 +49,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
@@ -73,8 +76,8 @@ def build() -> str:
     try:
         with ThreadPoolExecutor(len(SOURCES)) as pool:   # one nvcc each
             runs = list(pool.map(
-                lambda so: _run([nvcc, *NVCC_FLAGS, "-c", "-o", so[1],
-                                 so[0]]), zip(SOURCES, objs)))
+                lambda so: _run([nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o",
+                                 so[1], so[0]]), zip(SOURCES, objs)))
         log = "".join(f"== {os.path.basename(s)}\n{r.stdout}{r.stderr}"
                       for s, r in zip(SOURCES, runs))
         if any(r.returncode for r in runs):
@@ -116,7 +119,8 @@ def load() -> ctypes.CDLL:
         # jacobi.cu
         "sbs_jacobi_ctas_per_sm": [i, i],
         "sbs_jacobi_pass": [i, p, p, p, p, p, p, p, p, p, p, i, i, p, p, p,
-                            p],
+                            p, p, p, p, p, p, i, p, p, i, i, f, f, f, f, f,
+                            f, f, p],
         # collide.cu
         "sbs_collide": [p, i, p, i, i, f, f, f, f, f, f, f, p],
     }

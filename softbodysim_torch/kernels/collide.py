@@ -3,7 +3,10 @@ its plain PyTorch version beside it.
 
 * ``collide`` -- replaces ``softbodysim_tpu/kernels/collide.py::
   _collide_kernel``: the ground plane, then every collider in order, in one
-  pass over the particles.
+  pass over the particles.  The paths that run the stage on its own call
+  it (the xpbd steps, the jacobi gather and segment backends); the jacobi
+  pass backend runs the same code fused into its last pass of each
+  iteration (``jacobi.jacobi_tet_pass_collide``, ``csrc/collide_math.cuh``).
 
 The wrapper works in place on a (V, 4) f32 table of rows x, y, z, inverse
 mass (the layout of the pass backend; the gather and segment backends
@@ -129,16 +132,21 @@ def _check_table(xw: torch.Tensor) -> torch.device:
     return dev
 
 
+def check_packed(packed: torch.Tensor, dev: torch.device) -> None:
+    """Raise unless ``packed`` is a (K, 12) f32 table on ``dev``."""
+    if not isinstance(packed, torch.Tensor) or packed.dim() != 2 \
+            or packed.shape[1] != COLUMNS:
+        raise ValueError(f"packed must be a (K, {COLUMNS}) tensor")
+    _check(packed, "packed", torch.float32, packed.shape, dev)
+
+
 def collide(xw: torch.Tensor, packed: torch.Tensor,
             ground: Ground) -> torch.Tensor:
     """The whole collide stage on the free rows of ``xw``, in place;
     returns xw.  ``packed``: a (K, 12) table from ``pack_colliders`` on
     xw's device."""
     dev = _check_table(xw)
-    if packed.dim() != 2 or packed.shape[1] != COLUMNS:
-        raise ValueError(f"packed must be (K, {COLUMNS}), got "
-                         f"{tuple(packed.shape)}")
-    _check(packed, "packed", torch.float32, packed.shape, dev)
+    check_packed(packed, dev)
     if dev.type == "cpu":
         return collide_plain(xw, packed, ground)
     (gpx, gpy, gpz), (gnx, gny, gnz) = ground.point, ground.normal

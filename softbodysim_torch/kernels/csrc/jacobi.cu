@@ -2,9 +2,13 @@
 // stage per constraint family, reading one frozen snapshot.
 //
 // Replaces the TPU kernels of softbodysim_tpu/kernels/jacobi.py:
-//   tile_pass_kernel<2>  <- _edge_pass_kernel (:71, pallas_call :360; with
-//                           _scatter_acc4 :44 and _apply_epilogue :58)
-//   tile_pass_kernel<4>  <- _tet_pass_kernel  (:158, pallas_call :360)
+//   tile_pass_kernel<2, *>  <- _edge_pass_kernel (:71, pallas_call :360;
+//                              with _scatter_acc4 :44, _apply_epilogue :58)
+//   tile_pass_kernel<4, *>  <- _tet_pass_kernel  (:158, pallas_call :360)
+// and, in its <arity, true> variants run as the last pass of an iteration,
+// softbodysim_tpu/kernels/collide.py::_collide_kernel (:136, pallas_call
+// :220), which the JAX pass step calls once per iteration after both
+// passes (softbodysim_tpu/solver/jacobi_pallas.py:187-203).
 //
 // Semantics (the reference's K_EdgeGather / K_VolumeGather -> K_ApplyDelta,
 // and the JAX package's solver/jacobi.py segment formulation): every
@@ -36,10 +40,28 @@
 // Nothing but xout (and cnt_out) goes to device memory.  The stiffness and
 // the SOR factor are read from device memory at launch (a CUDA graph that
 // captured the launch reads their current values on each replay).  The pass
-// writes a
-// second table (double buffering; the step swaps the two), never the one
-// it reads.  Tables are in public vertex order: xw (V, 4) f32 rows x, y,
-// z, inverse mass, so a row is one 16-byte load.
+// writes a second table (double buffering; the step swaps the two), never
+// the one it reads.  Tables are in public vertex order: xw (V, 4) f32 rows
+// x, y, z, inverse mass, so a row is one 16-byte load.
+//
+// Heavy vertices.  A vertex in more constraints than a tile's shared
+// memory can hold as one run (the centre of a fan-tetrahedralised ball:
+// 81,920 tets at tet_ball(6)) is owned by no tile.  Each of its
+// contributions has its slot in one tile (the constraint's home), in one
+// run per (tile, heavy vertex) after the owned runs; step 3 writes each
+// such run's sum and count as a partial to a small device table.  Then
+// every CTA fences and takes a ticket; the last one sums each heavy
+// vertex's partials in tile order (L2 loads), applies, stores, and resets
+// the ticket for the next launch (and for a graph's next replay).  Still
+// no atomics on positions, and every sum in a fixed order.
+//
+// The fused collide stage (<arity, true>).  Each row of xout is written
+// once, by one CTA, from registers; the collide stage is per row, so it
+// runs there before the store: after apply_delta, each free row gets the
+// ground plane and then the colliders in order (collide_math.cuh, the
+// stand-alone collide kernel's code; the table staged in shared memory
+// after the slots).  That saves the stand-alone kernel's read and write
+// of the whole table and one launch per iteration.
 //
 // What bounds them.  The function moves, at 110,592 vertices / 642,960
 // edges: snapshot 1.77 MB + edges 5.14 MB + rest 2.57 MB read, 1.77 MB
@@ -59,6 +81,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "collide_math.cuh"
 
 namespace {
 
@@ -170,10 +194,47 @@ __device__ __forceinline__ void tet_visit(const float4* rows, float4* slots,
   }
 }
 
+// A family's heavy vertices (kernels/jacobi_plan.py): per tile its heavy
+// runs [part_ptr[t], part_ptr[t + 1]), each one's end in the tile's slots
+// and the partial it sums into (part_dst); per heavy vertex (verts,
+// ascending) its partials, contiguous in tile order: partials[vptr[j] ..
+// vptr[j + 1]).  partials: (P,) float4 scratch (xyz sum, count); ticket:
+// one counter, 0 between launches.
+struct Heavy {
+  const int* part_ptr;
+  const short* part_end;
+  const int* part_dst;
+  float4* partials;
+  const int* verts;
+  const int* vptr;
+  int n;
+  unsigned* ticket;
+};
+
+// A run of slots [s0, s1) summed in order: (xyz, count of flagged slots).
+__device__ __forceinline__ float4 run_sum(const float4* slots, int s0,
+                                          int s1) {
+  float sx = 0.f, sy = 0.f, sz = 0.f;
+  int cnt = 0;
+#pragma unroll 4
+  for (int s = s0; s < s1; ++s) {
+    const float4 v = slots[s];
+    sx = sx + v.x;
+    sy = sy + v.y;
+    sz = sz + v.z;
+    cnt += v.w != 0.f ? 1 : 0;
+  }
+  return make_float4(sx, sy, sz, (float)cnt);
+}
+
 // One CTA per tile t.  Shared memory: the tile's referenced rows, then its
-// slots.  rec: per listed constraint one short4 (edges: rows a, b, slots
-// a, b) or two (tets: rows, then slots); rest / ktab per listed constraint.
-template <int kArity>
+// slots (the owned runs, then the heavy runs); from float4 smem4 on (the
+// plan's smem_bytes / 16) the collider table (kCollide).  rec: per listed
+// constraint one short4 (edges: rows a, b, slots a, b) or two (tets:
+// rows, then slots); rest / ktab per listed constraint.  kCollide: each
+// row this launch writes gets the collide stage (ground, then the ncols
+// colliders of cols) before its store.
+template <int kArity, bool kCollide>
 __global__ void __launch_bounds__(threads_of(kArity))
 tile_pass_kernel(const float4* __restrict__ xin, float4* __restrict__ xout,
                  const int* __restrict__ row_ptr,
@@ -186,7 +247,8 @@ tile_pass_kernel(const float4* __restrict__ xin, float4* __restrict__ xout,
                  const float* __restrict__ ktab,
                  const float* __restrict__ kp,
                  const float* __restrict__ omegap,
-                 int* __restrict__ cnt_out) {
+                 int* __restrict__ cnt_out, int smem4, Heavy hv,
+                 const float* __restrict__ cols, int ncols, Ground ground) {
   constexpr int kThreads = threads_of(kArity);
   const float k = *kp, omega = *omegap;
   constexpr int kRec = kArity / 2;            // short4 per record
@@ -195,9 +257,14 @@ tile_pass_kernel(const float4* __restrict__ xin, float4* __restrict__ xout,
   const int r0 = row_ptr[t], nr = row_ptr[t + 1] - r0;
   const int o0 = own_ptr[t], no = own_ptr[t + 1] - o0;
   const int c0 = con_ptr[t], c1 = con_ptr[t + 1];
+  const int p0 = hv.part_ptr[t], nparts = hv.part_ptr[t + 1] - p0;
+  const int nown = no > 0 ? (int)slot_end[o0 + no - 1] : 0;
   float4* srows = smem;
   float4* slots = smem + nr;
+  float* tab = reinterpret_cast<float*>(smem + smem4);
 
+  if (kCollide)            // first: its loads overlap the rows' loads
+    for (int q = threadIdx.x; q < ncols * 12; q += kThreads) tab[q] = cols[q];
   for (int r = threadIdx.x; r < nr; r += kThreads)
     srows[r] = xin[rows[r0 + r]];
   __syncthreads();
@@ -226,51 +293,106 @@ tile_pass_kernel(const float4* __restrict__ xin, float4* __restrict__ xout,
   }
   __syncthreads();
 
-  for (int o = threadIdx.x; o < no; o += kThreads) {
-    const int s0 = o > 0 ? (int)slot_end[o0 + o - 1] : 0;
-    const int s1 = slot_end[o0 + o];
+  // the owned runs: sum, apply (and collide), store; then the heavy runs:
+  // one partial each
+  for (int o = threadIdx.x; o < no + nparts; o += kThreads) {
+    if (o < no) {
+      const int s0 = o > 0 ? (int)slot_end[o0 + o - 1] : 0;
+      const float4 d = run_sum(slots, s0, slot_end[o0 + o]);
+      const int cnt = (int)d.w;
+      const int g = rows[r0 + o];
+      float4 out = apply_delta(srows[o], d.x, d.y, d.z, cnt, omega);
+      if (kCollide) out = collide_row(out, ground, tab, ncols);
+      xout[g] = out;
+      if (cnt_out != nullptr) cnt_out[g] = cnt;
+    } else {
+      const int j = o - no;
+      const int s0 = j > 0 ? (int)hv.part_end[p0 + j - 1] : nown;
+      hv.partials[hv.part_dst[p0 + j]] =
+          run_sum(slots, s0, hv.part_end[p0 + j]);
+    }
+  }
+  if (hv.n == 0) return;
+
+  // the launch's last CTA to finish sums each heavy vertex's partials in
+  // tile order and applies (every CTA's partials are visible to it: each
+  // thread fences its stores before its CTA takes a ticket).  Thread j
+  // takes heavy vertex j0 + j.  The partials pass through the first smem4
+  // float4 of shared memory (the rows and slots, no longer read), a chunk
+  // at a time, all of the CTA's threads loading a chunk at once from L2:
+  // one thread loading a vertex's partials one by one would wait on L2
+  // for each (~57 us for tet_ball(6)'s 256 partials on the H100).
+  __threadfence();
+  __syncthreads();
+  const bool last = __syncthreads_or(
+      threadIdx.x == 0 && atomicAdd(hv.ticket, 1u) == gridDim.x - 1);
+  if (!last) return;
+  __threadfence();
+  for (int j0 = 0; j0 < hv.n; j0 += kThreads) {
+    const int j = j0 + threadIdx.x;
+    const int q0 = hv.vptr[j0], q1 = hv.vptr[min(hv.n, j0 + kThreads)];
+    const int m0 = j < hv.n ? hv.vptr[j] : 0;
+    const int m1 = j < hv.n ? hv.vptr[j + 1] : 0;
     float sx = 0.f, sy = 0.f, sz = 0.f;
     int cnt = 0;
-    for (int s = s0; s < s1; ++s) {
-      const float4 v = slots[s];
-      sx = sx + v.x;
-      sy = sy + v.y;
-      sz = sz + v.z;
-      cnt += v.w != 0.f ? 1 : 0;
+    for (int c0 = q0; c0 < q1; c0 += smem4) {
+      const int c1 = min(q1, c0 + smem4);
+      __syncthreads();                  // the last chunk is summed
+      for (int q = c0 + threadIdx.x; q < c1; q += kThreads)
+        smem[q - c0] = __ldcg(hv.partials + q);
+      __syncthreads();
+#pragma unroll 4
+      for (int q = max(m0, c0); q < min(m1, c1); ++q) {
+        const float4 v = smem[q - c0];
+        sx = sx + v.x;
+        sy = sy + v.y;
+        sz = sz + v.z;
+        cnt += (int)v.w;
+      }
     }
-    const int g = rows[r0 + o];
-    xout[g] = apply_delta(srows[o], sx, sy, sz, cnt, omega);
-    if (cnt_out != nullptr) cnt_out[g] = cnt;
+    if (j < hv.n) {
+      const int g = hv.verts[j];
+      float4 out = apply_delta(xin[g], sx, sy, sz, cnt, omega);
+      if (kCollide) out = collide_row(out, ground, tab, ncols);
+      xout[g] = out;
+      if (cnt_out != nullptr) cnt_out[g] = cnt;
+    }
   }
+  if (threadIdx.x == 0) *hv.ticket = 0u;       // ready for the next launch
 }
 
 using PassKernel = void (*)(const float4*, float4*, const int*, const int*,
                             const int*, const short*, const int*,
                             const short4*, const float*, const float*,
-                            const float*, const float*, int*);
+                            const float*, const float*, int*, int, Heavy,
+                            const float*, int, Ground);
 
-PassKernel kernel_of(int arity) {
-  switch (arity) {
-    case 2: return tile_pass_kernel<2>;
-    case 4: return tile_pass_kernel<4>;
+PassKernel kernel_of(int arity, bool collide) {
+  switch (arity * 2 + (collide ? 1 : 0)) {
+    case 4: return tile_pass_kernel<2, false>;
+    case 5: return tile_pass_kernel<2, true>;
+    case 8: return tile_pass_kernel<4, false>;
+    case 9: return tile_pass_kernel<4, true>;
     default: return nullptr;
   }
 }
 
-// Allow the kernel the card's whole opt-in shared memory, once per arity.
-cudaError_t opt_in(int arity) {
-  static bool done[5] = {false, false, false, false, false};
-  if (done[arity]) return cudaSuccess;
+// Allow the kernel the card's whole opt-in shared memory, once per
+// variant.
+cudaError_t opt_in(int arity, bool collide) {
+  static bool done[10] = {};
+  const int v = arity * 2 + (collide ? 1 : 0);
+  if (done[v]) return cudaSuccess;
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel_of(arity),
+    err = cudaFuncSetAttribute(kernel_of(arity, collide),
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                optin);
-  done[arity] = err == cudaSuccess;
+  done[v] = err == cudaSuccess;
   return err;
 }
 
@@ -279,22 +401,25 @@ cudaError_t opt_in(int arity) {
 // Plain C entry points (bound with ctypes).
 extern "C" {
 
-// CTAs of the pass kernel of this arity that one SM holds at once with
-// smem bytes of shared memory each (0: not even one); a negative CUDA error
-// code on failure.
+// CTAs of the pass kernel of this arity (without the collide stage) that
+// one SM holds at once with smem bytes of shared memory each (0: not even
+// one); a negative CUDA error code on failure.
 int sbs_jacobi_ctas_per_sm(int arity, int smem) {
-  if (kernel_of(arity) == nullptr) return -(int)cudaErrorInvalidValue;
-  cudaError_t err = opt_in(arity);
+  if (kernel_of(arity, false) == nullptr) return -(int)cudaErrorInvalidValue;
+  cudaError_t err = opt_in(arity, false);
   int per_sm = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel_of(arity), threads_of(arity), smem);
+        &per_sm, kernel_of(arity, false), threads_of(arity), smem);
   return err == cudaSuccess ? per_sm : -(int)err;
 }
 
 // One pass: one CTA of threads_of(arity) threads per tile, smem bytes of
 // dynamic shared memory (the plan's largest tile); k and omega point to one
-// f32 each in device memory.  Launches on the given
+// f32 each in device memory.  The heavy tables (nheavy may be 0) as in
+// struct Heavy.  cols != nullptr: the collide stage is fused into the pass
+// (ncols rows of 12 f32, staged from byte smem on: smem + 48 * ncols
+// bytes in all; the ground plane as given).  Launches on the given
 // stream, does not synchronise, and returns cudaGetLastError() so that a
 // refused launch is reported to the caller.
 int sbs_jacobi_pass(int arity, const void* xin, void* xout,
@@ -302,15 +427,28 @@ int sbs_jacobi_pass(int arity, const void* xin, void* xout,
                     const short* slot_end, const int* con_ptr,
                     const void* rec, const float* rest, const float* ktab,
                     int ntiles, int smem, const float* k,
-                    const float* omega, int* cnt_out, void* stream) {
-  PassKernel kernel = kernel_of(arity);
+                    const float* omega, int* cnt_out, const int* part_ptr,
+                    const short* part_end, const int* part_dst,
+                    void* partials, const int* heavy, const int* heavy_ptr,
+                    int nheavy, unsigned* ticket, const float* cols, int ncols,
+                    int ground_on, float gpx, float gpy, float gpz,
+                    float gnx, float gny, float gnz, float r,
+                    void* stream) {
+  const bool collide = cols != nullptr;
+  PassKernel kernel = kernel_of(arity, collide);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = opt_in(arity);
+  const cudaError_t err = opt_in(arity, collide);
   if (err != cudaSuccess) return (int)err;
+  const Heavy hv = {part_ptr, part_end, part_dst, (float4*)partials,
+                    heavy, heavy_ptr, nheavy, ticket};
+  const Ground g = {ground_on, gpx, gpy, gpz, gnx, gny, gnz, r};
+  const int smem4 = smem / 16;
+  if (collide) smem += ncols * 12 * (int)sizeof(float);
   if (ntiles > 0) {
     kernel<<<ntiles, threads_of(arity), smem, (cudaStream_t)stream>>>(
         (const float4*)xin, (float4*)xout, row_ptr, rows, own_ptr, slot_end,
-        con_ptr, (const short4*)rec, rest, ktab, k, omega, cnt_out);
+        con_ptr, (const short4*)rec, rest, ktab, k, omega, cnt_out, smem4,
+        hv, cols, collide ? ncols : 0, g);
   }
   return (int)cudaGetLastError();
 }

@@ -5,11 +5,18 @@ each with its plain PyTorch version beside it.
   _edge_pass_kernel``: one distance gather + apply stage.
 * ``jacobi_tet_pass``  -- replaces ``_tet_pass_kernel``: one volume gather +
   apply stage.
+* ``jacobi_edge_pass_collide`` / ``jacobi_tet_pass_collide`` -- the same
+  passes with the collide stage (``softbodysim_tpu/kernels/collide.py::
+  _collide_kernel``, here ``collide.collide``) fused into them: each row
+  the pass writes gets the ground plane and the colliders before its
+  store.  The pass step runs them as the last pass of each iteration.
 
-Both kernels are one launch of one CTA per spatial vertex tile
+All are one launch of one CTA per spatial vertex tile
 (``jacobi_plan.tile_plan``; the plans below hold each family's tiles on
-the device): no intermediate table in device memory, no atomics, a fixed
-summation order per vertex.
+the device): no intermediate table of positions in device memory, no
+atomics on positions, a fixed summation order per vertex.  A plan with
+heavy vertices (``jacobi_plan``) adds a small table of partial sums that
+the launch's last CTA reduces.
 
 Both read the snapshot ``xin`` and write ``xout``, two distinct (V, 4) f32
 tables of rows x, y, z, inverse mass in public vertex order; the caller
@@ -29,6 +36,7 @@ int32) receives each particle's constraint count.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -36,6 +44,7 @@ import torch
 
 from ..collide.primitives import cross3, dot3
 from ..core.state import f32, resolve_device
+from . import collide as kc
 from . import count_launch, jacobi_plan
 from .sweep import _check, _lib, _ptr, _raise_on, _stream
 
@@ -130,7 +139,9 @@ class Tiles(NamedTuple):
     """A family's tile plan (``jacobi_plan.tile_plan``) on one device: what
     the CUDA pass reads.  Per listed constraint (tile-major) its record of
     local rows and slots, its rest value and, with a per-constraint
-    stiffness table, its k."""
+    stiffness table, its k; the heavy vertices' tables, and the pass's
+    scratch for them (the partials, and the ticket of the CTA that sums
+    them, 0 between launches)."""
 
     num_tiles: int
     max_rows: int
@@ -140,11 +151,18 @@ class Tiles(NamedTuple):
     row_ptr: torch.Tensor          # (n+1,) int32
     rows: torch.Tensor             # (sum R,) int32 global vertex ids
     own_ptr: torch.Tensor          # (n+1,) int32
-    slot_end: torch.Tensor         # (V,) int16
+    slot_end: torch.Tensor         # (sum owned,) int16
     con_ptr: torch.Tensor          # (n+1,) int32
     rec: torch.Tensor              # (L, 2 * arity) int16
     rest: torch.Tensor             # (L,) f32
     k: Optional[torch.Tensor]      # (L,) f32
+    part_ptr: torch.Tensor         # (n+1,) int32
+    part_end: torch.Tensor         # (P,) int16
+    part_dst: torch.Tensor         # (P,) int32
+    heavy: torch.Tensor            # (H,) int32
+    heavy_ptr: torch.Tensor        # (H+1,) int32
+    partials: torch.Tensor         # (P, 4) f32 scratch, heavy-major
+    ticket: torch.Tensor           # (1,) int32 scratch
 
 
 class EdgePassPlan(NamedTuple):
@@ -194,38 +212,58 @@ def device_tiles(tp: jacobi_plan.TilePlan, rest, k, device) -> Tiles:
         con_ptr=_t(tp.con_ptr, i32, device),
         rec=_t(tp.rec, torch.int16, device),
         rest=_t(rest[tp.cons], torch.float32, device),
-        k=None if k is None else _t(k[tp.cons], torch.float32, device))
+        k=None if k is None else _t(k[tp.cons], torch.float32, device),
+        part_ptr=_t(tp.part_ptr, i32, device),
+        part_end=_t(tp.part_end, torch.int16, device),
+        part_dst=_t(tp.part_dst, i32, device),
+        heavy=_t(tp.heavy, i32, device),
+        heavy_ptr=_t(tp.heavy_ptr, i32, device),
+        partials=torch.zeros((len(tp.part_dst), 4), dtype=torch.float32,
+                             device=device),
+        ticket=torch.zeros(1, dtype=i32, device=device))
 
 
 def edge_pass_plan(num_particles: int, edges, edge_rest, k=None,
-                   device=None, *, vertices) -> EdgePassPlan:
+                   device=None, *, vertices,
+                   smem_budget: int = jacobi_plan.SMEM_LIMIT,
+                   tiles: Optional[jacobi_plan.TilePlan] = None
+                   ) -> EdgePassPlan:
     """The edge tables and their tile plan on ``device`` (default: the
-    card); ``vertices``: the rest positions the tiles are cut from."""
+    card); ``vertices``: the rest positions the tiles are cut from;
+    ``smem_budget``: a tile's shared memory, at most (``tile_plan``);
+    ``tiles``: the host tile plan, when the caller already cut it."""
     dev = resolve_device(device)
     edges = np.asarray(edges, np.int64).reshape(-1, 2)
     rest = np.asarray(edge_rest, np.float32).reshape(-1)
     k = _k_array(k, len(edges))
+    if tiles is None:
+        tiles = jacobi_plan.tile_plan(num_particles, edges, vertices,
+                                      smem_budget=smem_budget)
     return EdgePassPlan(
         num_particles=num_particles, edges=_t(edges, torch.int32, dev),
         rest=_t(rest, torch.float32, dev),
         k=None if k is None else _t(k, torch.float32, dev),
-        tiles=device_tiles(jacobi_plan.tile_plan(
-            num_particles, edges, vertices), rest, k, dev))
+        tiles=device_tiles(tiles, rest, k, dev))
 
 
 def tet_pass_plan(num_particles: int, tets, tet_rest_vol, k=None,
-                  device=None, *, vertices) -> TetPassPlan:
+                  device=None, *, vertices,
+                  smem_budget: int = jacobi_plan.SMEM_LIMIT,
+                  tiles: Optional[jacobi_plan.TilePlan] = None
+                  ) -> TetPassPlan:
     """The tet tables and their tile plan on ``device``."""
     dev = resolve_device(device)
     tets = np.asarray(tets, np.int64).reshape(-1, 4)
     rest = np.asarray(tet_rest_vol, np.float32).reshape(-1)
     k = _k_array(k, len(tets))
+    if tiles is None:
+        tiles = jacobi_plan.tile_plan(num_particles, tets, vertices,
+                                      smem_budget=smem_budget)
     return TetPassPlan(
         num_particles=num_particles, tets=_t(tets, torch.int32, dev),
         rest=_t(rest, torch.float32, dev),
         k=None if k is None else _t(k, torch.float32, dev),
-        tiles=device_tiles(jacobi_plan.tile_plan(
-            num_particles, tets, vertices), rest, k, dev))
+        tiles=device_tiles(tiles, rest, k, dev))
 
 
 def ctas_per_sm(plan) -> int:
@@ -261,12 +299,19 @@ def _check_pass(plan, xin, xout, cnt_out) -> torch.device:
 
 def _check_tiles(tiles: Tiles, v: int, arity: int, dev) -> None:
     n, L = tiles.num_tiles, tiles.rest.shape[0]
+    h, P = tiles.heavy.shape[0], tiles.part_dst.shape[0]
     i32 = torch.int32
-    for name in ("row_ptr", "own_ptr", "con_ptr"):
+    for name in ("row_ptr", "own_ptr", "con_ptr", "part_ptr"):
         _check(getattr(tiles, name), f"tiles.{name}", i32, (n + 1,), dev)
     _check(tiles.rows, "tiles.rows", i32, (tiles.rows.shape[0],), dev)
-    _check(tiles.slot_end, "tiles.slot_end", torch.int16, (v,), dev)
+    _check(tiles.slot_end, "tiles.slot_end", torch.int16, (v - h,), dev)
     _check(tiles.rec, "tiles.rec", torch.int16, (L, 2 * arity), dev)
+    _check(tiles.part_end, "tiles.part_end", torch.int16, (P,), dev)
+    _check(tiles.part_dst, "tiles.part_dst", i32, (P,), dev)
+    _check(tiles.heavy, "tiles.heavy", i32, (h,), dev)
+    _check(tiles.heavy_ptr, "tiles.heavy_ptr", i32, (h + 1,), dev)
+    _check(tiles.partials, "tiles.partials", torch.float32, (P, 4), dev)
+    _check(tiles.ticket, "tiles.ticket", i32, (1,), dev)
     _check(tiles.rest, "tiles.rest", torch.float32, (L,), dev)
     if tiles.k is not None:
         _check(tiles.k, "tiles.k", torch.float32, (L,), dev)
@@ -328,15 +373,53 @@ def jacobi_edge_pass_plain(plan: EdgePassPlan, xin: torch.Tensor,
            cnt_out)
 
 
-def _launch(plan, arity, xin, xout, k, omega, cnt_out, name) -> None:
-    """One launch of the tiled pass kernel: one CTA per tile."""
+def _launch(plan, arity, xin, xout, k, omega, cnt_out, name, packed=None,
+            ground=None) -> None:
+    """One launch of the tiled pass kernel: one CTA per tile; with
+    ``packed`` (and ``ground``) the variant with the collide stage."""
     t, dev = plan.tiles, xin.device
+    ground = ground or kc.XPBD_GROUND
+    (gpx, gpy, gpz), (gnx, gny, gnz) = ground.point, ground.normal
+    f = ctypes.c_float
     rc = _lib().sbs_jacobi_pass(
         arity, _ptr(xin), _ptr(xout), _ptr(t.row_ptr), _ptr(t.rows),
         _ptr(t.own_ptr), _ptr(t.slot_end), _ptr(t.con_ptr), _ptr(t.rec),
         _ptr(t.rest), _ptr(t.k), t.num_tiles, t.smem_bytes, _ptr(k),
-        _ptr(omega), _ptr(cnt_out), _stream(dev))
+        _ptr(omega), _ptr(cnt_out), _ptr(t.part_ptr), _ptr(t.part_end),
+        _ptr(t.part_dst), _ptr(t.partials), _ptr(t.heavy),
+        _ptr(t.heavy_ptr), t.heavy.shape[0], _ptr(t.ticket),
+        _ptr(packed), 0 if packed is None else packed.shape[0],
+        int(ground.enabled), f(gpx), f(gpy), f(gpz), f(gnx), f(gny), f(gnz),
+        f(ground.radius), _stream(dev))
     _raise_on(rc, name)
+
+
+def _pass(plan, arity, fn, plain, xin, xout, k, omega, cnt_out, packed=None,
+          ground=None) -> None:
+    """Checks, then ``plain`` for tables on the CPU or one launch of the
+    kernel of ``arity`` (with the collide stage when ``packed`` is given),
+    counted as ``fn``'s."""
+    dev = _check_pass(plan, xin, xout, cnt_out)
+    (_check_edge_plan if arity == 2 else _check_tet_plan)(plan, dev)
+    k, omega = _scalar(k, "k", dev), _scalar(omega, "omega", dev)
+    if packed is not None:
+        kc.check_packed(packed, dev)
+        smem = (plan.tiles.smem_bytes
+                + jacobi_plan.COLLIDER_BYTES * packed.shape[0])
+        if smem > jacobi_plan.SMEM_LIMIT:
+            raise ValueError(
+                f"{fn.__name__}: the plan's largest tile and {packed.shape[0]}"
+                f" colliders need {smem} bytes of shared memory, over "
+                f"{jacobi_plan.SMEM_LIMIT}: build the plan with smem_budget="
+                f"jacobi_plan.pass_budget({packed.shape[0]})")
+    if dev.type == "cpu":
+        plain(plan, xin, xout, k, omega, cnt_out)
+        if packed is not None:
+            kc.collide_plain(xout, packed, ground)
+        return
+    _launch(plan, arity, xin, xout, k, omega, cnt_out, fn.__name__, packed,
+            ground)
+    count_launch(fn)
 
 
 def jacobi_edge_pass(plan: EdgePassPlan, xin: torch.Tensor,
@@ -345,16 +428,26 @@ def jacobi_edge_pass(plan: EdgePassPlan, xin: torch.Tensor,
     """One distance gather + apply stage from snapshot xin into xout.
     k: the stiffness (float32-exact; with a per-constraint table, its
     multiplier); omega: the SOR factor."""
-    dev = _check_pass(plan, xin, xout, cnt_out)
-    _check_edge_plan(plan, dev)
-    k, omega = _scalar(k, "k", dev), _scalar(omega, "omega", dev)
-    if dev.type == "cpu":
-        return jacobi_edge_pass_plain(plan, xin, xout, k, omega, cnt_out)
-    _launch(plan, 2, xin, xout, k, omega, cnt_out, "jacobi_edge_pass")
-    count_launch(jacobi_edge_pass)
+    _pass(plan, 2, jacobi_edge_pass, jacobi_edge_pass_plain, xin, xout, k,
+          omega, cnt_out)
 
 
 jacobi_edge_pass.launches = 0
+
+
+def jacobi_edge_pass_collide(plan: EdgePassPlan, xin: torch.Tensor,
+                             xout: torch.Tensor, k, omega,
+                             packed: torch.Tensor, ground: kc.Ground,
+                             cnt_out: Optional[torch.Tensor] = None) -> None:
+    """``jacobi_edge_pass``, then the collide stage (``collide.collide``:
+    the ground plane, then the colliders of the packed table) on every free
+    row of xout, in one launch.  Its plain version is the two plain
+    versions in turn."""
+    _pass(plan, 2, jacobi_edge_pass_collide, jacobi_edge_pass_plain, xin,
+          xout, k, omega, cnt_out, packed, ground)
+
+
+jacobi_edge_pass_collide.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -375,13 +468,21 @@ def jacobi_tet_pass(plan: TetPassPlan, xin: torch.Tensor,
                     xout: torch.Tensor, k, omega,
                     cnt_out: Optional[torch.Tensor] = None) -> None:
     """One volume gather + apply stage from snapshot xin into xout."""
-    dev = _check_pass(plan, xin, xout, cnt_out)
-    _check_tet_plan(plan, dev)
-    k, omega = _scalar(k, "k", dev), _scalar(omega, "omega", dev)
-    if dev.type == "cpu":
-        return jacobi_tet_pass_plain(plan, xin, xout, k, omega, cnt_out)
-    _launch(plan, 4, xin, xout, k, omega, cnt_out, "jacobi_tet_pass")
-    count_launch(jacobi_tet_pass)
+    _pass(plan, 4, jacobi_tet_pass, jacobi_tet_pass_plain, xin, xout, k,
+          omega, cnt_out)
 
 
 jacobi_tet_pass.launches = 0
+
+
+def jacobi_tet_pass_collide(plan: TetPassPlan, xin: torch.Tensor,
+                            xout: torch.Tensor, k, omega,
+                            packed: torch.Tensor, ground: kc.Ground,
+                            cnt_out: Optional[torch.Tensor] = None) -> None:
+    """``jacobi_tet_pass`` with the collide stage fused, as
+    ``jacobi_edge_pass_collide``."""
+    _pass(plan, 4, jacobi_tet_pass_collide, jacobi_tet_pass_plain, xin,
+          xout, k, omega, cnt_out, packed, ground)
+
+
+jacobi_tet_pass_collide.launches = 0

@@ -276,15 +276,16 @@ def make_jacobi_step(topology, params: SolverParams,
                      edge_k=None, tet_k=None, *, device=None):
     """Build ``step(state, dt) -> state`` for the resolved jacobi backend
     on ``device`` (default: the card)."""
-    from .select import resolve_backend
+    from .select import resolve_with_tiles
 
     if params.self_collision or (params.surface_collision
                                  and len(topology.surface_tris)):
         raise NotImplementedError(
             "self / surface collision is not ported yet (ROADMAP.md queue 1 "
             "item 9)")
-    backend = resolve_backend(topology, params, device=device,
-                              local_to_world=local_to_world)
+    backend, tiles = resolve_with_tiles(
+        topology, params, device=device, local_to_world=local_to_world,
+        num_colliders=0 if colliders is None else colliders.count)
     if backend == "pass":
         if local_to_world is not None or world_to_local is not None:
             raise ValueError(
@@ -293,7 +294,7 @@ def make_jacobi_step(topology, params: SolverParams,
         from .jacobi_pass import JacobiPassStep
 
         return JacobiPassStep(topology, params, colliders, device=device,
-                              edge_k=edge_k, tet_k=tet_k)
+                              edge_k=edge_k, tet_k=tet_k, tiles=tiles)
     return JacobiStep(topology, params, backend, colliders, device=device,
                       local_to_world=local_to_world,
                       world_to_local=world_to_local, edge_k=edge_k,

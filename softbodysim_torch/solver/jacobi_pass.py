@@ -9,14 +9,18 @@ Jacobi reads one snapshot per pass, so this matches the segment and gather
 backends (and ``tests/oracle.py::JacobiOracle``) up to fp32 summation
 order.
 
-The collide stage is the fused collide kernel (``kernels/collide.py``) for
-the ground plane and the colliders together; the JAX package's Pallas
-backend ran this stage as XLA ops (``jacobi_pallas.py:187-203``).  Body
-transforms and self / surface collision are not supported here
-(``make_jacobi_step`` routes transforms to 'gather').
+The collide stage (the ground plane, then the colliders) runs inside the
+iteration's last pass -- the tet pass, or the edge pass of a mesh without
+tets -- as that pass's collide variant (``kernels/jacobi.py::
+jacobi_tet_pass_collide``): each row the pass writes is pushed out before
+its store, so the stage costs no launch and no pass over the table of its
+own.  The JAX package's Pallas backend ran this stage as XLA ops after
+both passes (``jacobi_pallas.py:187-203``); the Chebyshev blend still
+follows it.  Body transforms and self / surface collision are not
+supported here (``make_jacobi_step`` routes transforms to 'gather').
 
-On a CUDA device one substep -- predict, the iterations' passes, collide
-stages and Chebyshev blends, commit -- is captured once as a CUDA graph
+On a CUDA device one substep -- predict, the iterations' passes and
+Chebyshev blends, commit -- is captured once as a CUDA graph
 (``solver/graphs.py``) and replayed, so the host launches one graph per
 substep instead of ~40 kernels and ops (the JAX package compiles the same
 loop into one XLA program, ``jacobi_pallas.py:205-262``).  The graphs run
@@ -48,6 +52,7 @@ from ..collide.primitives import Colliders
 from ..core.state import SimState, SolverParams, f32, resolve_device
 from ..kernels import collide as kc
 from ..kernels import jacobi as kj
+from ..kernels import jacobi_plan
 from .accel import chebyshev_loop
 from .graphs import GraphCache
 
@@ -65,24 +70,33 @@ class JacobiPassStep:
 
     edge_k / tet_k: optional per-constraint stiffness (public order); the
     step-time stiffness scalars then multiply them (default 1.0).  Built
-    by ``make_jacobi_step``, which rejects what this backend lacks."""
+    by ``make_jacobi_step``, which rejects what this backend lacks.
+
+    tiles: the (edge, tet) host tile plans of ``jacobi_plan.pass_tiles``
+    for these colliders, when the caller already cut them."""
 
     backend = "pass"
 
     def __init__(self, topology, params: SolverParams,
                  colliders: Optional[Colliders] = None, *, device=None,
-                 edge_k=None, tet_k=None):
+                 edge_k=None, tet_k=None, tiles=None):
         dev = self.device = resolve_device(device)
         self.params = params
         V = topology.num_particles
+        self.colliders = None if colliders is None else colliders.to(dev)
+        if tiles is None:     # the last pass stages the collider table
+            tiles = jacobi_plan.pass_tiles(
+                topology, 0 if colliders is None else colliders.count)
+        edge_tiles, tet_tiles = tiles
         self.edge_plan = (kj.edge_pass_plan(
             V, topology.edges, topology.edge_rest, edge_k, dev,
-            vertices=topology.vertices) if topology.num_edges else None)
+            vertices=topology.vertices, tiles=edge_tiles)
+            if topology.num_edges else None)
         self.tet_plan = (kj.tet_pass_plan(
             V, topology.tets, topology.tet_rest_vol, tet_k, dev,
-            vertices=topology.vertices) if topology.num_tets else None)
+            vertices=topology.vertices, tiles=tet_tiles)
+            if topology.num_tets else None)
         self._per_k = (edge_k is not None, tet_k is not None)
-        self.colliders = None if colliders is None else colliders.to(dev)
         self.ground = kc.make_ground(params)
         self.do_collide = params.ground_enabled or (
             colliders is not None and colliders.count > 0)
@@ -146,15 +160,21 @@ class JacobiPassStep:
         k_edge, k_vol, omega, sdt, inv_dt = scal.unbind()
         free = x[:, 3:4] != 0.0
 
+        passes = [(plan, fn, fused, k) for plan, fn, fused, k in (
+            (self.edge_plan, kj.jacobi_edge_pass,
+             kj.jacobi_edge_pass_collide, k_edge),
+            (self.tet_plan, kj.jacobi_tet_pass, kj.jacobi_tet_pass_collide,
+             k_vol)) if plan is not None]
+
         def iteration(x):
             y = bufs[1] if x is bufs[0] else bufs[0]
-            if self.edge_plan is not None:
-                kj.jacobi_edge_pass(self.edge_plan, x, y, k_edge, omega)
+            for i, (plan, fn, fused, k) in enumerate(passes):
+                if self.do_collide and i == len(passes) - 1:
+                    fused(plan, x, y, k, omega, packed, self.ground)
+                else:
+                    fn(plan, x, y, k, omega)
                 x, y = y, x
-            if self.tet_plan is not None:
-                kj.jacobi_tet_pass(self.tet_plan, x, y, k_vol, omega)
-                x, y = y, x
-            if self.do_collide:
+            if self.do_collide and not passes:
                 kc.collide(x, packed, self.ground)
             return x
 

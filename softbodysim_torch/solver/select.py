@@ -8,21 +8,35 @@ kernels, is an alias of "sweep", and "scatter", its other coloured
 backend, an alias of "gather" (the same coloured sweep, computed once
 here).  ``jacobi_backend="auto"`` resolves to the
 pass kernels ("pass") on a CUDA device at >= 100k constraints without a
-body transform and to "gather" otherwise; "pallas" is an alias of "pass".
+body transform, when the mesh's tile plans fit the pass kernels
+(``kernels/jacobi_plan.py``: a dense mesh may not), and to "gather"
+otherwise; "pallas" is an alias of "pass".
 """
 
 from __future__ import annotations
 
 from ..core.state import resolve_device
+from ..kernels import jacobi_plan
 
 SWEEP_MIN_CONSTRAINTS = 100_000
 _KERNEL_BACKEND = {"xpbd": "sweep", "jacobi": "pass"}
 
 
-def resolve_backend(topology, params, *, device=None,
-                    local_to_world=None) -> str:
+def resolve_backend(topology, params, *, device=None, local_to_world=None,
+                    num_colliders: int = 0) -> str:
     """The concrete backend of ``params.dialect`` for ``topology`` on
-    ``device``."""
+    ``device``; ``num_colliders``: the jacobi pass stages that many rows of
+    the collider table beside each tile (``jacobi_plan.pass_budget``)."""
+    return resolve_with_tiles(topology, params, device=device,
+                              local_to_world=local_to_world,
+                              num_colliders=num_colliders)[0]
+
+
+def resolve_with_tiles(topology, params, *, device=None,
+                       local_to_world=None, num_colliders: int = 0) -> tuple:
+    """(``resolve_backend``'s backend, the jacobi tile plans that 'auto'
+    cut to see that the pass kernels fit, else None): the pass step takes
+    them instead of cutting them again (``JacobiPassStep(tiles=)``)."""
     if params.dialect == "xpbd":
         backend, kernel_ok = params.xpbd_backend, True
     elif params.dialect == "jacobi":
@@ -31,11 +45,17 @@ def resolve_backend(topology, params, *, device=None,
         raise ValueError(f"unknown dialect {params.dialect!r}")
     kernel = _KERNEL_BACKEND[params.dialect]
     if backend == "pallas":
-        return kernel
+        return kernel, None
     if backend == "scatter" and params.dialect == "xpbd":
-        return "gather"
+        return "gather", None
     if backend != "auto":
-        return backend
+        return backend, None
     big = (topology.num_edges + topology.num_tets) >= SWEEP_MIN_CONSTRAINTS
-    return kernel if big and kernel_ok and \
-        resolve_device(device).type == "cuda" else "gather"
+    if not (big and kernel_ok and resolve_device(device).type == "cuda"):
+        return "gather", None
+    if params.dialect == "jacobi":
+        try:
+            return kernel, jacobi_plan.pass_tiles(topology, num_colliders)
+        except jacobi_plan.TileFitError:
+            return "gather", None
+    return kernel, None

@@ -15,10 +15,13 @@ backends compute the same coloured sweep with XLA ops (two forms for
 XLA's cost on a TPU); here it is plain tensor ops, on either device, and
 one form serves both names.  On the card one iteration's
 colour passes and ground clamp -- tens of tiny ops per colour -- are
-captured once as a CUDA graph (per pair of compliance scalars;
-``solver/graphs.py``) and replayed, so the host launches one graph
-instead of every op (the JAX package compiles the same loop into one XLA
-program).  Every backend
+captured once as a CUDA graph (``solver/graphs.py``) and replayed, so the
+host launches one graph instead of every op (the JAX package compiles the
+same loop into one XLA program).  The graph reads the compliance scalars
+(compliance / sdt^2, per family) from a static device tensor, copied in
+only when they change, so a compliance or dt override that changes every
+step captures nothing new (the JAX step takes them as traced scalars).
+Every backend
 applies colliders (world space, particle radius 0) after the ground clamp
 in each iteration; on a CUDA device that stage is the fused collide
 kernel (``kernels/collide.py``), launched outside the graph, on the CPU its
@@ -116,7 +119,7 @@ class ColouredStep:
         self._gravity = torch.tensor(params.gravity, dtype=torch.float32,
                                      device=dev)
         V = topology.num_particles
-        self._graphs = GraphCache(dev, kept=4)   # by (e_alpha, t_alpha)
+        self._graphs = GraphCache(dev, kept=1)   # one iteration
 
         def i64(a):
             return torch.as_tensor(np.asarray(a, np.int64)).to(dev)
@@ -140,14 +143,16 @@ class ColouredStep:
                 vslots=[i64(_vertex_slot_map(V, cm[s:e], arity))
                         for s, e in slices],
                 perm=i64(order), inv=i64(np.argsort(order)))
-        # on the card, the graphs' static inputs: positions, inverse
-        # masses, lambdas
+        # on the card, the graph's static inputs: positions, inverse
+        # masses, lambdas, the compliance scalars (e_alpha, t_alpha)
         self._buf = None if dev.type != "cuda" else dict(
             x=torch.zeros((V, 3), device=dev),
             w=torch.zeros((V,), device=dev),
             lam={fam: torch.zeros((n,), device=dev) for fam, n in (
                 ("edges", topology.num_edges), ("tets", topology.num_tets))
-                if fam in self._fam})
+                if fam in self._fam},
+            alpha=torch.zeros(2, device=dev))
+        self._alpha_now = None               # the scalars in _buf["alpha"]
 
     # ---- colour passes ----------------------------------------------------
 
@@ -179,7 +184,8 @@ class ColouredStep:
 
     def _solve(self, xs, w, lam, e_alpha, t_alpha):
         """One iteration but its collider stage: the colour passes, then the
-        ground clamp (Sim.cpp:187-195)."""
+        ground clamp (Sim.cpp:187-195).  e_alpha / t_alpha: float32-exact
+        floats or 0-dim float32 tensors on xs's device (the same bits)."""
         if self.has_edges:
             xs = self._edges(xs, w, lam["edges"], e_alpha)
         if self.has_tets:
@@ -239,10 +245,15 @@ class ColouredStep:
         if graphed:
             b = self._buf
             b["w"].copy_(w)
+            if (e_alpha, t_alpha) != self._alpha_now:
+                b["alpha"].copy_(torch.tensor([e_alpha, t_alpha],
+                                              dtype=torch.float32)
+                                 .pin_memory(), non_blocking=True)
+                self._alpha_now = (e_alpha, t_alpha)
 
             def solve():
-                return self._solve(b["x"], b["w"], b["lam"], e_alpha,
-                                   t_alpha)
+                return self._solve(b["x"], b["w"], b["lam"],
+                                   *b["alpha"].unbind())
 
         x, v = state.x, state.v
         for _ in range(ss):
@@ -252,7 +263,7 @@ class ColouredStep:
             for _ in range(p.iterations):
                 if graphed:
                     b["x"].copy_(xs)
-                    xs = self._graphs.run((e_alpha, t_alpha), solve)
+                    xs = self._graphs.run("iteration", solve)
                 else:
                     xs = self._solve(xs, w, lam, e_alpha, t_alpha)
                 if packed is not None:

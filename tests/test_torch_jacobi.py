@@ -31,9 +31,12 @@ from softbodysim_torch.core.topology import ColorGroups, Topology
 from softbodysim_torch.io.from_jax import state_from_numpy
 from softbodysim_torch.kernels import collide as kc
 from softbodysim_torch.kernels import jacobi as kj
+from softbodysim_torch.kernels import jacobi_plan as jp
+from softbodysim_torch.solver import jacobi_pass as jpass
 from softbodysim_torch.solver.select import resolve_backend
 
 from oracle import JacobiOracle
+from test_torch_jacobi_tiles import fan_ball
 
 DT = 1.0 / 60.0
 STEPS = 10
@@ -447,6 +450,11 @@ def test_backend_resolution(monkeypatch):
     big = types.SimpleNamespace(num_edges=60_000, num_tets=40_000)
     small = types.SimpleNamespace(num_edges=60_000, num_tets=39_999)
     auto = _params()
+    # these stand for meshes whose tile plans fit the pass kernels
+    # (test_auto_pass_needs_a_fitting_plan builds real ones)
+    asked = []
+    monkeypatch.setattr(jp, "pass_tiles",
+                        lambda t, n: asked.append(t) or (None, None))
     assert resolve_backend(big, auto, device="cpu") == "gather"
     assert resolve_backend(small, auto, device="cpu") == "gather"
     assert resolve_backend(small, auto.replace(jacobi_backend="pallas")) \
@@ -459,12 +467,99 @@ def test_backend_resolution(monkeypatch):
     assert resolve_backend(small, auto, device="cuda") == "gather"
     assert resolve_backend(big, auto, device="cuda",
                            local_to_world=np.eye(4)) == "gather"
+    assert asked and all(t is big for t in asked)
     # the xpbd rule is unchanged
     assert resolve_backend(big, auto.replace(dialect="xpbd"),
                            device="cuda") == "sweep"
     with pytest.raises(ValueError):
         sbt.make_step(sbt.meshes.tet_cube(2, 2, 2),
                       auto.replace(jacobi_backend="nope"), device="cpu")
+
+
+def test_auto_pass_needs_a_fitting_plan(monkeypatch):
+    """'auto' on the card: tet_ball(6, 0.3) (245,762 constraints, the
+    centre in all 81,920 tets) plans with a heavy centre and gets the pass
+    kernels, whose step takes the plans that the check cut (each family
+    is cut once); a dense graph whose tiles cannot fit gets 'gather', with
+    or without colliders."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    auto = _params()
+    ball = fan_ball(6)
+    assert ball.num_edges + ball.num_tets == 245_762
+    cut, built = [], {}
+    tile_plan = jp.tile_plan
+    monkeypatch.setattr(jp, "tile_plan",
+                        lambda *a, **k: cut.append(a[1]) or tile_plan(*a, **k))
+    monkeypatch.setattr(jpass, "JacobiPassStep",
+                        lambda *a, tiles, **k: built.setdefault("t", tiles))
+    tiles = sbt.make_step(ball, auto, device="cuda")
+    assert tiles is built["t"] and len(cut) == 2
+    assert [t.heavy.tolist() for t in tiles] == [[ball.num_particles - 1]] * 2
+    assert resolve_backend(ball, auto, device="cuda", num_colliders=4) \
+        == "pass"
+    n = 460                                    # 105,570 edges, 2 tiles
+    i, j = np.triu_indices(n, 1)
+    dense = types.SimpleNamespace(
+        num_particles=n, vertices=np.random.default_rng(1).uniform(
+            0.0, 1.0, (n, 3)), edges=np.stack([i, j], 1),
+        tets=np.zeros((0, 4), np.int64), num_edges=len(i), num_tets=0)
+    for k in (0, 3):
+        assert resolve_backend(dense, auto, device="cuda",
+                               num_colliders=k) == "gather"
+    assert resolve_backend(dense, auto.replace(jacobi_backend="pass"),
+                           device="cuda") == "pass"          # as asked
+
+
+@pytest.mark.parametrize("subdivisions", [5, 6])
+def test_pass_step_steps_high_valence_balls(subdivisions):
+    """JacobiPassStep builds tet_ball(5) and tet_ball(6) (its centre a
+    heavy vertex of both families) and steps it onto the floor box as the
+    'segment' step does (1e-5 m after one step; on the CPU both run plain
+    tensor code; 'gather' takes a minute to build its padded rows for a
+    centre in 81,920 tets)."""
+    ball = fan_ball(subdivisions, center=(0.0, 0.45, 0.0))
+    box = sbt.Colliders.build([dict(type=1, position=(0.0, 0.1, 0.0),
+                                    data=(1.5, 0.1, 1.5))], device="cpu")
+    s0 = sbt.init_state(ball, inv_mass_mode="density", device="cpu")
+    out = {}
+    for backend in ("pass", "segment"):
+        step = sbt.make_step(ball, _params(jacobi_backend=backend), box,
+                             device="cpu")
+        assert step.backend == backend
+        out[backend] = step(s0, DT).x.numpy()
+        if backend == "pass":
+            for plan in (step.edge_plan, step.tet_plan):
+                assert plan.tiles.heavy.tolist() == [ball.num_particles - 1]
+    assert np.isfinite(out["pass"]).all()
+    np.testing.assert_allclose(out["pass"], out["segment"], rtol=0,
+                               atol=1e-5)
+    assert out["pass"][:, 1].min() >= 0.2 + 0.02 - 1e-4     # on the box
+
+
+def test_heavy_pass_step_matches_jax(monkeypatch):
+    """SampleScene's mesh (every tet holds the centre) with a heavy-vertex
+    threshold low enough to make its centre heavy.  On the CPU this checks
+    the plan (the pass step's tile plans make the centre heavy) and the
+    plain step, which matches the JAX package's jacobi step onto a box
+    within 1e-5 m over 6 steps (the JAX Pallas passes are held to its
+    gather backend by tests/test_jacobi_pallas.py).  The heavy route's
+    arithmetic, the partials and the last CTA's finish, is checked by the
+    tiled replay in tests/test_torch_jacobi_tiles.py and the card tests in
+    tests/test_torch_kernels.py."""
+    monkeypatch.setattr(jp, "HEAVY_RUN", 40)
+    jball = sbs.meshes.tet_ball(2, 0.3, center=(0.0, 0.55, 0.0))
+    topo = _port_topology(jball)
+    step = sbt.make_step(topo, _params(jacobi_backend="pass"),
+                         sbt.Colliders.build([BOX], device="cpu"),
+                         device="cpu")
+    for plan in (step.edge_plan, step.tet_plan):
+        assert plan.tiles.heavy.tolist() == [topo.num_particles - 1]
+    s = sbt.init_state(topo, inv_mass_mode="density", device="cpu")
+    for _ in range(6):
+        s = step(s, DT)
+    want = _jax_run(jball, "gather", steps=6)
+    np.testing.assert_allclose(s.x.numpy(), want, rtol=0, atol=1e-5)
+    assert want[:, 1].min() < 0.2 + 0.03              # it reached the box
 
 
 @pytest.mark.parametrize("case", ["self_collision", "surface_collision",

@@ -12,6 +12,8 @@ plain version within 1e-6 m (fp32 summation order and a few ulps of
 rounding), counts equal.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -155,6 +157,8 @@ def _replay(p, rest, k, xin, scale, omega):
     a = p.arity
     xout = xin.clone()
     cnt = torch.zeros(xin.shape[0], dtype=torch.int32)
+    parts = torch.zeros((len(p.part_dst), 3))        # heavy-major
+    pcnt = torch.zeros(len(p.part_dst), dtype=torch.int32)
     for t in range(p.num_tiles):
         r0, r1 = int(p.row_ptr[t]), int(p.row_ptr[t + 1])
         c0, c1 = int(p.con_ptr[t]), int(p.con_ptr[t + 1])
@@ -196,26 +200,47 @@ def _replay(p, rest, k, xin, scale, omega):
                 wsum == 0.0, 1.0, wsum), 0.0)
             contrib = [g * (lam * wr)[:, None] for g, wr in zip(gs, ws)]
             flags = [valid & (wr != 0.0) for wr in ws]
-        nslot = int(p.slot_end[o1 - 1])
+        q0, q1 = int(p.part_ptr[t]), int(p.part_ptr[t + 1])
+        nown = int(p.slot_end[o1 - 1]) if o1 > o0 else 0
+        nslot = int(p.part_end[q1 - 1]) if q1 > q0 else nown
         slots = torch.zeros((nslot, 4))
         for r in range(a):
             m = dst[:, r] >= 0
             slots[dst[m, r]] = torch.cat(
                 [contrib[r][m], flags[r][m, None].float()], 1)
-        ends = torch.from_numpy(p.slot_end[o0:o1].astype(np.int64))
-        starts = torch.cat([torch.zeros(1, dtype=torch.int64), ends[:-1]])
-        acc = torch.zeros((o1 - o0, 3))
-        c = torch.zeros(o1 - o0, dtype=torch.int32)
-        for j in range(int((ends - starts).max())):     # the run, in order
-            live = starts + j < ends
-            s = slots[torch.where(live, starts + j, 0)]
-            acc = torch.where(live[:, None], acc + s[:, :3], acc)
-            c = c + (live & (s[:, 3] != 0.0)).to(torch.int32)
+        acc, c = _run_sums(slots, 0, p.slot_end[o0:o1])
         own = rows[:o1 - o0]
         xo = kj.apply_delta(x[:o1 - o0], w[:o1 - o0], acc, c, omega)
         xout[own, :3] = xo
         cnt[own] = c
+        # the tile's heavy runs, after its owned ones: one partial each
+        dst = torch.from_numpy(p.part_dst[q0:q1].astype(np.int64))
+        parts[dst], pcnt[dst] = _run_sums(slots, nown, p.part_end[q0:q1])
+    # each heavy vertex: its partials (contiguous, in tile order) summed in
+    # order, then applied
+    for h, v in enumerate(p.heavy):
+        acc, c = torch.zeros((1, 3)), torch.zeros(1, dtype=torch.int32)
+        for i in range(p.heavy_ptr[h], p.heavy_ptr[h + 1]):
+            acc, c = acc + parts[i], c + pcnt[i]
+        xout[v, :3] = kj.apply_delta(xin[v:v + 1, :3], xin[v:v + 1, 3], acc,
+                                     c, omega)[0]
+        cnt[v] = c[0]
     return xout, cnt
+
+
+def _run_sums(slots, first, ends):
+    """Each run's sum (xyz) and count, its slots in order: the runs end at
+    ``ends`` and the first starts at ``first``."""
+    ends = torch.from_numpy(np.asarray(ends, np.int64))
+    starts = torch.cat([torch.tensor([first]), ends[:-1]])
+    acc = torch.zeros((len(ends), 3))
+    c = torch.zeros(len(ends), dtype=torch.int32)
+    for j in range(int((ends - starts).max()) if len(ends) else 0):
+        live = starts + j < ends
+        s = slots[torch.where(live, starts + j, 0)]
+        acc = torch.where(live[:, None], acc + s[:, :3], acc)
+        c = c + (live & (s[:, 3] != 0.0)).to(torch.int32)
+    return acc, c
 
 
 @pytest.mark.parametrize("perk", [False, True])
@@ -264,3 +289,202 @@ def test_device_tiles_are_the_host_plan(family):
     np.testing.assert_array_equal(tiles.rest.numpy(),
                                   np.asarray(rest, np.float32)[p.cons])
     np.testing.assert_array_equal(tiles.k.numpy(), k[p.cons])
+
+
+# --------------------------------------------------------------------------
+# Heavy vertices (a vertex in more constraints than a tile can hold)
+# --------------------------------------------------------------------------
+
+# the plans of tet_cube(12, 12, 12) before heavy vertices existed: sha256 of
+# (name, dtype, bytes) of each table, first 32 hex digits
+SINGLE_OWNER_DIGESTS = {
+    ("edges", 64): "e28fe0df5688da2f83cd937d5a4fb056",
+    ("edges", 256): "4b5137f943d1bddba64271e5c5bec800",
+    ("tets", 64): "a5c8712ae28f8aec77c58d967e02b64f",
+    ("tets", 256): "3383d689e45f674e14ffab94acb185ba",
+}
+
+
+def _digest(p) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for f in ("row_ptr", "rows", "own_ptr", "slot_end", "con_ptr", "cons",
+              "rec"):
+        a = np.ascontiguousarray(getattr(p, f))
+        h.update(f.encode())
+        h.update(str(a.dtype).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()[:32]
+
+
+@pytest.mark.parametrize("cap", [64, 256])
+@pytest.mark.parametrize("family", ["edges", "tets"])
+def test_plan_without_heavy_vertices_is_unchanged(family, cap):
+    """A mesh of normal valence has no heavy vertex, and its plan is the
+    one the pass kernels ran before heavy vertices existed, array for
+    array (tet_cube(12) standing in for the north star's tet_cube(47))."""
+    topo = sbt.meshes.tet_cube(12, 12, 12)
+    cons, _ = _family(topo, family)
+    p = jp.tile_plan(topo.num_particles, cons, topo.vertices, cap)
+    assert len(p.heavy) == 0 and len(p.part_dst) == 0
+    np.testing.assert_array_equal(p.part_ptr, 0)
+    assert _digest(p) == SINGLE_OWNER_DIGESTS[(family, cap)]
+
+
+def _check_heavy_plan(p, cons, V, cap, heavy_run, budget=jp.SMEM_LIMIT):
+    """Every (vertex, constraint, role) has exactly one slot: owned
+    vertices in their tile's run, heavy ones in one partial's run of the
+    constraint's home tile; every tile fits int16 and ``budget``."""
+    cons = np.asarray(cons, np.int64)
+    a = cons.shape[1]
+    deg = np.bincount(cons.ravel(), minlength=V)
+    np.testing.assert_array_equal(p.heavy, np.flatnonzero(deg > heavy_run))
+    own_cnt = np.diff(p.own_ptr)
+    assert own_cnt.max() <= cap
+    owned = np.concatenate([p.rows[p.row_ptr[t]:p.row_ptr[t] + own_cnt[t]]
+                            for t in range(p.num_tiles)])
+    np.testing.assert_array_equal(np.sort(owned), np.flatnonzero(
+        deg <= heavy_run))
+    # heavy run -> (tile, heavy vertex), from the finishing tables: each
+    # heavy vertex's partials contiguous and in tile order
+    P = len(p.part_dst)
+    assert sorted(p.part_dst) == list(range(P))
+    ptile = np.searchsorted(p.part_ptr, np.arange(P), side="right") - 1
+    owner = np.searchsorted(p.heavy_ptr, p.part_dst, side="right") - 1
+    pvert = p.heavy[owner].astype(np.int64)
+    for h in range(len(p.heavy)):
+        runs = np.flatnonzero(owner == h)
+        assert (np.diff(ptile[runs[np.argsort(p.part_dst[runs])]]) > 0).all()
+    seen = []
+    for t in range(p.num_tiles):
+        r0, r1 = p.row_ptr[t], p.row_ptr[t + 1]
+        c0, c1 = p.con_ptr[t], p.con_ptr[t + 1]
+        q0, q1 = p.part_ptr[t], p.part_ptr[t + 1]
+        rows = p.rows[r0:r1]
+        assert len(np.unique(rows)) == len(rows)
+        loc, dst = p.rec[c0:c1, :a].astype(np.int64), p.rec[c0:c1, a:]
+        gid = p.cons[c0:c1]
+        assert (np.diff(gid) > 0).all()
+        np.testing.assert_array_equal(rows[loc], cons[gid])
+        n_own = own_cnt[t]
+        ends = np.concatenate([p.slot_end[p.own_ptr[t]:p.own_ptr[t + 1]],
+                               p.part_end[q0:q1]]).astype(np.int64)
+        nslots = ends[-1] if len(ends) else 0
+        assert max(r1 - r0, nslots) <= jp.INT16_MAX
+        assert (r1 - r0) * jp.ROW_BYTES + nslots * jp.SLOT_BYTES <= budget
+        assert ((loc < n_own) <= (dst >= 0)).all()       # owned -> a slot
+        ci, ri = np.nonzero(dst >= 0)
+        slot = dst[ci, ri].astype(np.int64)
+        np.testing.assert_array_equal(np.sort(slot), np.arange(nslots))
+        run = np.searchsorted(ends, slot, side="right")  # the slot's run
+        hp = np.clip(q0 + run - n_own, 0, max(len(pvert) - 1, 0))
+        who = np.where(run < n_own, rows[np.minimum(run, len(rows) - 1)],
+                       pvert[hp] if len(pvert) else -1)
+        np.testing.assert_array_equal(rows[loc[ci, ri]], who)
+        seen.append(np.stack([who, gid[ci], ri], 1))
+    seen = np.concatenate(seen)
+    want = np.stack([cons.ravel(), np.repeat(np.arange(len(cons)), a),
+                     np.tile(np.arange(a), len(cons))], 1)
+    order = lambda s: s[np.lexsort(s.T[::-1])]      # noqa: E731
+    np.testing.assert_array_equal(order(seen), order(want))
+
+
+def fan_ball(subdivisions: int, radius: float = 0.3, center=(0, 0, 0)):
+    """tet_ball(subdivisions, radius, center)'s vertices, edges, tets,
+    surface and rest values (the icosphere fanned to its centre, tets
+    oriented positive) without its colouring, which takes seconds at this
+    size and which the Jacobi steps do not read."""
+    from softbodysim_torch.core.meshes import icosphere
+    from softbodysim_torch.core.topology import (build_edges_and_surface,
+                                                 orient_tets_positive)
+
+    verts, faces = icosphere(subdivisions)
+    verts = (np.concatenate([verts * radius, np.zeros((1, 3))])
+             + np.asarray(center)).astype(np.float32)
+    tets = orient_tets_positive(verts, np.concatenate(
+        [faces, np.full((len(faces), 1), len(faces) // 2 + 2)], 1))
+    edges, surface = build_edges_and_surface(verts, tets)
+    edges = edges.astype(np.int64)
+    d = verts[edges[:, 1]] - verts[edges[:, 0]]
+    p = verts[tets]
+    cr = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+    e3 = p[:, 3] - p[:, 0]
+    return types.SimpleNamespace(
+        vertices=verts, edges=edges, tets=tets, surface_tris=surface,
+        edge_rest=np.sqrt((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
+                          + d[:, 2] * d[:, 2]).astype(np.float32),
+        tet_rest_vol=(((cr[:, 0] * e3[:, 0] + cr[:, 1] * e3[:, 1])
+                       + cr[:, 2] * e3[:, 2]) / np.float32(6.0)).astype(
+                           np.float32),
+        num_particles=len(verts), num_edges=len(edges),
+        num_tets=len(tets))
+
+
+@pytest.mark.parametrize("family", ["edges", "tets"])
+@pytest.mark.parametrize("subdivisions", [5, 6])
+def test_high_valence_balls_fit_the_pass(subdivisions, family):
+    """tet_ball(5) and tet_ball(6) (the centre in every tet: 20,480 and
+    81,920) plan at the default cap: their centre is heavy, every
+    incidence has one slot, every tile fits."""
+    ball = fan_ball(subdivisions)
+    assert ball.num_tets == 20 * 4 ** subdivisions
+    cons = ball.edges if family == "edges" else ball.tets
+    budget = jp.pass_budget(1)
+    p = jp.tile_plan(ball.num_particles, cons, ball.vertices,
+                     smem_budget=budget)
+    assert len(p.heavy) == 1
+    assert p.smem_bytes <= budget and p.max_slots <= jp.INT16_MAX
+    _check_heavy_plan(p, cons, ball.num_particles, jp.TILE_CAP,
+                      jp.HEAVY_RUN, budget)
+
+
+@pytest.mark.parametrize("family", ["edges", "tets"])
+@pytest.mark.parametrize("case", ["forced", "ball4", "all_heavy"])
+def test_heavy_replay_matches_plain(case, family, monkeypatch):
+    """The tiled replay with heavy vertices -- partials per tile, summed
+    per heavy vertex in tile order -- against the plain pass: SampleScene's
+    body with its centre made heavy by a low threshold, tet_ball(4) at the
+    default one, and tet_cube(3) with every vertex heavy (one tile, owning
+    none).  Within 1e-5 m (the pass tests' tolerance), counts equal."""
+    topo, cap, run = {
+        "forced": (MESHES["ball"], 32, 40),
+        "ball4": (sbt.meshes.tet_ball(4, 0.3), jp.TILE_CAP, jp.HEAVY_RUN),
+        "all_heavy": (sbt.meshes.tet_cube(3, 3, 3), 32, 0)}[case]
+    monkeypatch.setattr(jp, "HEAVY_RUN", run)
+    cons, rest = _family(topo, family)
+    V = topo.num_particles
+    p = jp.tile_plan(V, cons, topo.vertices, cap)
+    _check_heavy_plan(p, cons, V, cap, run)
+    assert len(p.heavy) == (V if case == "all_heavy" else 1)
+    xin, _ = _table(topo)
+    got, got_cnt = _replay(p, np.asarray(rest, np.float32), None, xin, 0.9,
+                           1.4)
+    make, plain = ((kj.edge_pass_plan, kj.jacobi_edge_pass_plain)
+                   if family == "edges"
+                   else (kj.tet_pass_plan, kj.jacobi_tet_pass_plain))
+    plan = make(V, cons, rest, device="cpu", vertices=topo.vertices)
+    want = torch.full_like(xin, np.nan)
+    want_cnt = torch.zeros(V, dtype=torch.int32)
+    plain(plan, xin, want, 0.9, 1.4, want_cnt)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert torch.equal(got_cnt, want_cnt)
+    h = torch.from_numpy(p.heavy.astype(np.int64))
+    assert (got[h] - xin[h]).abs().max() > 0.0         # heavy rows moved
+
+
+def test_a_mesh_that_cannot_fit_raises():
+    """A dense graph under the heavy threshold: 300 vertices all joined,
+    two tiles of ~45,000 slots each: over int16 and the budget, so the
+    plan raises TileFitError (a ValueError), and so does ``pass_tiles``."""
+    n = 300
+    i, j = np.triu_indices(n, 1)
+    edges = np.stack([i, j], 1)
+    verts = np.random.default_rng(0).uniform(0.0, 1.0, (n, 3))
+    with pytest.raises(jp.TileFitError, match="gather"):
+        jp.tile_plan(n, edges, verts)
+    dense = types.SimpleNamespace(num_particles=n, edges=edges,
+                                  tets=np.zeros((0, 4), np.int64),
+                                  vertices=verts)
+    with pytest.raises(jp.TileFitError):
+        jp.pass_tiles(dense)

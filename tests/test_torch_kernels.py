@@ -320,7 +320,11 @@ def test_jacobi_pass_graph_matches_eager_bitwise(case, cuda_device):
     torch.cuda.synchronize()
     assert launch_counts() == counts
     assert len(step._graphs) == (2 if case == "edges_odd" else 1)
-    assert counts["collide"] == 8 * substeps * step.params.iterations
+    # the collide stage runs inside each iteration's last pass
+    last = ("jacobi_edge_pass_collide" if case == "edges_odd"
+            else "jacobi_tet_pass_collide")
+    assert counts[last] == 8 * substeps * step.params.iterations
+    assert counts["collide"] == 0
     assert torch.equal(graphed.xw, eager.xw)
     assert torch.equal(graphed.vv, eager.vv)
     assert not torch.equal(graphed.xw[:, :3], state.x)
@@ -358,6 +362,144 @@ def test_jacobi_pass_graph_sees_poses_and_overrides(cuda_device):
     assert (graphed.xw - plain.xw).abs().max() > 1e-4
     free = graphed.xw[:, 3] != 0
     assert graphed.xw[free, 1].min() >= 0.24 - 1e-3       # the moved top
+
+
+def _pass_kit(family):
+    return ((kj.edge_pass_plan, kj.jacobi_edge_pass,
+             kj.jacobi_edge_pass_collide, kj.jacobi_edge_pass_plain)
+            if family == "edges"
+            else (kj.tet_pass_plan, kj.jacobi_tet_pass,
+                  kj.jacobi_tet_pass_collide, kj.jacobi_tet_pass_plain))
+
+
+def _three_colliders(device):
+    """A floor box, a sphere and a capsule, and the ground plane."""
+    q = (0.1826, 0.3651, 0.5477, 0.7303)
+    cols = sbt.Colliders.build([
+        sbt.Colliders.box((0.0, 0.1, 0.0), (1.5, 0.1, 1.5)),
+        sbt.Colliders.sphere((0.1, 0.45, 0.0), 0.2),
+        sbt.Colliders.capsule((-0.3, 0.5, 0.2), 0.1, 0.3, rotation=q)],
+        device=device)
+    return kc.pack_colliders(cols), kc.make_ground(sbt.SolverParams(
+        dialect="jacobi", particle_radius=0.02))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["edges", "tets"])
+def test_fused_collide_pass_equals_pass_then_collide_bitwise(family,
+                                                            cuda_device):
+    """The pass with the collide stage fused equals the pass followed by
+    the stand-alone collide kernel bit for bit, on 20 launches from one
+    snapshot (a floor box, a sphere and a capsule the body sinks into,
+    pinned rows untouched), and its plain version within 1e-5 m."""
+    topo, xin, _ = _jacobi_table(SIZES["medium"], cuda_device, seed=6)
+    xin[:, 1] -= 0.45                       # into the box, sphere, capsule
+    cons, rest = ((topo.edges, topo.edge_rest) if family == "edges"
+                  else (topo.tets, topo.tet_rest_vol))
+    make, fn, fused, plain = _pass_kit(family)
+    V = topo.num_particles
+    plan = make(V, cons, rest, device=cuda_device, vertices=topo.vertices)
+    packed, ground = _three_colliders(cuda_device)
+    want = torch.empty_like(xin)
+    cw = torch.zeros(V, dtype=torch.int32, device=cuda_device)
+    fn(plan, xin, want, 0.9, 1.4, cw)
+    moved = want.clone()
+    kc.collide(want, packed, ground)
+    launches = fused.launches
+    outs = torch.empty((20, V, 4), device=cuda_device)
+    cnt = torch.zeros(V, dtype=torch.int32, device=cuda_device)
+    for i in range(20):
+        fused(plan, xin, outs[i], 0.9, 1.4, packed, ground,
+              cnt if i == 0 else None)
+    assert fused.launches == launches + 20
+    ref = torch.empty_like(xin)
+    plain(plan, xin, ref, 0.9, 1.4)
+    kc.collide_plain(ref, packed, ground)
+    torch.cuda.synchronize()
+    assert (want - moved).abs().max() > 1e-3            # the stage pushed
+    assert torch.equal(outs, want.expand_as(outs))
+    assert torch.equal(cnt, cw)
+    torch.testing.assert_close(outs[0], ref, rtol=0, atol=1e-5)
+    pinned = xin[:, 3] == 0
+    assert pinned.any() and torch.equal(outs[0][pinned], xin[pinned])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["edges", "tets"])
+@pytest.mark.parametrize("subdivisions", [5, 6])
+def test_heavy_vertex_pass_on_card(subdivisions, family, cuda_device):
+    """tet_ball(5) and tet_ball(6) (the centre in every tet): the centre
+    is heavy, summed from per-tile partials by the launch's last CTA.  20
+    launches equal bit for bit; within 1e-5 m of the plain version,
+    counts equal; the fused collide variant equals pass + collide."""
+    from test_torch_jacobi_tiles import fan_ball
+
+    ball = fan_ball(subdivisions)
+    V = ball.num_particles
+    rng = np.random.default_rng(subdivisions)
+    xin = torch.zeros((V, 4))
+    xin[:, :3] = torch.from_numpy((ball.vertices + np.array(
+        [0.0, 0.45, 0.0], np.float32) + rng.normal(0.0, 0.01, (V, 3))
+        ).astype(np.float32))
+    xin[:, 3] = torch.from_numpy(rng.uniform(0.5, 2.0, V).astype(
+        np.float32))
+    xin[[3, 40], 3] = 0.0
+    xin = xin.to(cuda_device)
+    cons = ball.edges if family == "edges" else ball.tets
+    rest = (np.linalg.norm(ball.vertices[cons[:, 0]]
+                           - ball.vertices[cons[:, 1]], axis=1)
+            if family == "edges" else np.full(len(cons), 1e-5))
+    make, fn, fused, plain = _pass_kit(family)
+    plan = make(V, cons, rest.astype(np.float32), device=cuda_device,
+                vertices=ball.vertices)
+    assert plan.tiles.heavy.tolist() == [V - 1]
+    xa, xb = torch.empty_like(xin), torch.empty_like(xin)
+    ca = torch.zeros(V, dtype=torch.int32, device=cuda_device)
+    cb = torch.zeros_like(ca)
+    fn(plan, xin, xa, 0.9, 1.4, ca)
+    plain(plan, xin, xb, 0.9, 1.4, cb)
+    outs = torch.empty((20, V, 4), device=cuda_device)
+    for i in range(20):
+        fn(plan, xin, outs[i], 0.9, 1.4)
+    packed, ground = _three_colliders(cuda_device)
+    want = xa.clone()
+    kc.collide(want, packed, ground)
+    got = torch.empty_like(xin)
+    fused(plan, xin, got, 0.9, 1.4, packed, ground)
+    torch.cuda.synchronize()
+    assert torch.equal(outs, xa.expand_as(outs))
+    torch.testing.assert_close(xa, xb, rtol=0, atol=1e-5)
+    assert torch.equal(ca, cb)
+    assert ca[V - 1] == int((cons == V - 1).any(1).sum())   # all valid
+    assert not torch.equal(xa[V - 1], xin[V - 1])
+    assert torch.equal(got, want)
+    assert plan.tiles.ticket.item() == 0
+
+
+@pytest.mark.cuda
+def test_coloured_step_captures_one_graph_on_card(cuda_device,
+                                                  monkeypatch):
+    """The coloured step with an edge compliance that changes every step
+    captures one graph (the scalars are a device tensor it reads) and
+    matches the same steps on the CPU within 1e-4."""
+    captures = []
+    begin = torch.cuda.CUDAGraph.capture_begin
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin",
+                        lambda self, *a, **k: captures.append(1)
+                        or begin(self, *a, **k))
+    topo = sbt.meshes.tet_cube(3, 3, 3, size=0.5, center=(0.0, 0.3, 0.0))
+    params = sbt.SolverParams(dialect="xpbd", substeps=2, iterations=4,
+                              xpbd_backend="gather")
+    engines = [sbt.Engine(topo, params, device=d)
+               for d in (cuda_device, "cpu")]
+    for i in range(5):
+        for eng in engines:
+            eng.step(DT, edge_compliance=1e-6 * (i + 1),
+                     volume_compliance=2e-7 * i)
+    torch.cuda.synchronize()
+    assert len(captures) == 1
+    torch.testing.assert_close(engines[0].state.x.cpu(),
+                               engines[1].state.x, rtol=0, atol=1e-4)
 
 
 @pytest.mark.cuda
@@ -404,10 +546,13 @@ def test_jacobi_engine_on_card_matches_cpu(backend, cuda_device):
     after = launch_counts()
     cpu = engine("cpu").run(10, DT)
     stages = 10 * params.substeps * params.iterations
-    assert after["collide"] == before["collide"] + stages
-    passes = stages if backend == "pass" else 0
-    for name in ("jacobi_edge_pass", "jacobi_tet_pass"):
-        assert after[name] == before[name] + passes, name
+    # the pass backend runs the collide stage inside its tet pass
+    fused = backend == "pass"
+    for name, n in (("collide", 0 if fused else stages),
+                    ("jacobi_edge_pass", stages if fused else 0),
+                    ("jacobi_tet_pass", 0),
+                    ("jacobi_tet_pass_collide", stages if fused else 0)):
+        assert after[name] == before[name] + n, name
     # velocities are position differences over sdt = 1/120 s: 1e-3
     for f, tol in (("x", 1e-4), ("v", 1e-3)):
         torch.testing.assert_close(getattr(gpu.state, f).cpu(),

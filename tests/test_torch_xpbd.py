@@ -146,3 +146,29 @@ def test_coloured_backends_refuse_what_they_lack():
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         make_xpbd_step(topo, params.replace(self_collision=True),
                        device="cpu")
+
+
+@pytest.mark.parametrize("alpha", [(0.0, 0.0), (3.6e-3, 1.25e-4)])
+def test_coloured_solve_reads_alpha_tensors_bitwise(alpha):
+    """The coloured iteration with the compliance scalars as 0-dim float32
+    tensors (views of one (2,) tensor, as the card's graph reads them)
+    gives the bits of the same float32-exact floats."""
+    topo = _cube(CUBES["cube3"])
+    step = make_xpbd_step(topo, sbt.SolverParams(**PARAMS), device="cpu")
+    s = sbt.init_state(topo, device="cpu")
+    rng = np.random.default_rng(5)
+    x = s.x + torch.from_numpy(rng.normal(0.0, 0.01, s.x.shape).astype(
+        np.float32))
+    floats = [float(np.float32(a)) for a in alpha]
+    tensor = torch.tensor(floats, dtype=torch.float32)
+    lam0 = {fam: torch.from_numpy(rng.normal(0.0, 1e-3, n).astype(
+        np.float32)) for fam, n in (("edges", topo.num_edges),
+                                    ("tets", topo.num_tets))}
+    outs = []
+    for a in (floats, tensor.unbind()):
+        lam = {fam: v.clone() for fam, v in lam0.items()}
+        outs.append((step._solve(x, s.inv_mass, lam, *a), lam))
+    assert torch.equal(outs[0][0], outs[1][0])
+    for fam in lam0:
+        assert torch.equal(outs[0][1][fam], outs[1][1][fam])
+    assert not torch.equal(outs[0][0], x)

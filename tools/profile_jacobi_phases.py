@@ -11,12 +11,16 @@ own row of a table (no atomics).  Then runs each pass on the north-star
 tile plans (tet_cube(47)) from a predicted, perturbed state and prints
 per pass its time per call (CUDA events over 20 back-to-back launches),
 the mean cycles per CTA of each phase as thread 0 sees them (in the last
-launch), and the CTAs' lifetimes beside the span of the launch's CTAs:
+launch), and the CTAs' lifetimes beside the span of the launch's CTAs.
+The passes: edges, tets, and tets with the collide stage fused (the
+floor box and the ground plane, the body moved onto them, as the jacobi
+main path runs it).
 
-  stage   the tile's header, the rows of the snapshot into shared
-          memory, and the barrier
+  stage   the tile's header, the rows of the snapshot (and the collider
+          table) into shared memory, and the barrier
   visit   the listed constraints into their slots, and the barrier
-  apply   thread 0's owned vertices: their sums, the apply, the stores
+  apply   thread 0's owned vertices: their sums, the apply (and the
+          collide stage), the stores; and its heavy runs' partials
 
 The instrumentation takes registers and a few stores per CTA: times run a
 little above the plain build's (chip_smoke.py times that one).
@@ -35,6 +39,7 @@ import torch  # noqa: E402
 
 import instrumented_build as ib  # noqa: E402
 import softbodysim_torch as sbt  # noqa: E402
+from softbodysim_torch.kernels import collide as kc  # noqa: E402
 from softbodysim_torch.kernels import jacobi as kj  # noqa: E402
 
 PHASES = ("stage", "visit", "apply")
@@ -48,11 +53,12 @@ STAMPS = (
     ("    srows[r] = xin[rows[r0 + r]];\n  __syncthreads();\n", "PHASE(0)\n"),
     ("      tet_visit(srows, slots, v0, v1, rs, kk);\n    }\n  }\n"
      "  __syncthreads();\n", "PHASE(1)\n"),
-    ("    if (cnt_out != nullptr) cnt_out[g] = cnt;\n  }\n",
+    ("hv.part_end[p0 + j]);\n    }\n  }\n",
      "PHASE(2)\n"
      "  __syncthreads();\n"
      "  if (threadIdx.x == 0 && blockIdx.x < MAX_CTAS_) {\n"
-     "    unsigned long long* f = g_cta[kArity / 2 - 1][blockIdx.x];\n"
+     "    unsigned long long* f =\n"
+     "        g_cta[kArity / 2 - 1 + (kCollide ? 2 : 0)][blockIdx.x];\n"
      "    for (int i = 0; i < 3; ++i) f[i] = acc_[i];\n"
      "    f[3] = t0_;\n"
      "    f[4] = gtime();\n"
@@ -66,7 +72,7 @@ def instrumented_source() -> str:
         src = ib.insert(src, anchor, code, "jacobi.cu")
     src = ib.insert(src, "namespace {\n", (
         f"constexpr int MAX_CTAS_ = {MAX_CTAS};\n"
-        f"__device__ unsigned long long g_cta[2][{MAX_CTAS}][{FIELDS}];\n"
+        f"__device__ unsigned long long g_cta[4][{MAX_CTAS}][{FIELDS}];\n"
         "__device__ __forceinline__ unsigned long long gtime() {\n"
         "  unsigned long long t;\n"
         '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));\n'
@@ -94,12 +100,23 @@ def main() -> int:
     xout = torch.empty_like(xin)
     # k and omega on the device, as the pass step gives them
     k, om = (torch.tensor(v, device=dev) for v in (0.9, 1.4))
-    take = np.zeros((2, MAX_CTAS, FIELDS), np.uint64)
-    for fam, (make, fn, cons, rest) in enumerate((
-            (kj.edge_pass_plan, kj.jacobi_edge_pass, topo.edges,
-             topo.edge_rest),
-            (kj.tet_pass_plan, kj.jacobi_tet_pass, topo.tets,
-             topo.tet_rest_vol))):
+    params = sbt.SolverParams(dialect="jacobi", particle_radius=0.02)
+    packed = kc.pack_colliders(sbt.Colliders.build(
+        [sbt.Colliders.box((0.0, 0.1, 0.0), (1.5, 0.1, 1.5))], device=dev))
+    ground = kc.make_ground(params)
+    xin[:, 1] -= 1.75                   # the body's bottom into the box
+
+    def tet_collide(plan, xin, xout, k, om):
+        kj.jacobi_tet_pass_collide(plan, xin, xout, k, om, packed, ground)
+
+    take = np.zeros((4, MAX_CTAS, FIELDS), np.uint64)
+    for slot, (make, fn, cons, rest) in (
+            (0, (kj.edge_pass_plan, kj.jacobi_edge_pass, topo.edges,
+                 topo.edge_rest)),
+            (1, (kj.tet_pass_plan, kj.jacobi_tet_pass, topo.tets,
+                 topo.tet_rest_vol)),
+            (3, (kj.tet_pass_plan, tet_collide, topo.tets,
+                 topo.tet_rest_vol))):
         plan = make(V, cons, rest, device=dev, vertices=topo.vertices)
         n = plan.tiles.num_tiles
         if n > MAX_CTAS:
@@ -113,9 +130,11 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
         lib.sbs_phase_take(take.ctypes.data)      # the last launch's CTAs
-        f = take[fam, :n].astype(np.float64)
+        f = take[slot, :n].astype(np.float64)
         life = (f[:, 4] - f[:, 3]) / 1e3
-        print(f"{fn.__name__}: {start.elapsed_time(end) / 20:.4f} ms per "
+        name = ("jacobi_tet_pass_collide (floor box, ground)"
+                if fn is tet_collide else fn.__name__)
+        print(f"{name}: {start.elapsed_time(end) / 20:.4f} ms per "
               f"call ({n} tiles, {kj.ctas_per_sm(plan)} CTAs per SM); "
               "mean cycles per CTA: "
               + ", ".join(f"{p} {c:.0f}" for p, c in
