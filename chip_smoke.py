@@ -56,6 +56,45 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
 10. Jacobi reference check: tet_cube(3) onto a box and the ground, 10 steps
    on the card on the pass and gather backends, against the NumPy
    JacobiOracle (tests/oracle.py).
+A-F. The scene paths and the convergence module, after phase 10 and
+   before any profiler runs, each at full size with the launch counts set
+   to 0 before it and printed after it:
+   A. perf.convergence.run_curves on the north star (ss2 x it6, 'auto'
+      block scheme, 120 steps, ordering 'blocks_pallas': the sweep
+      kernels); the 30-step tail means of the edge and tet residuals
+      beside the JAX package's record (0.2328 / 0.4892) and the serial
+      Gauss-Seidel anchors (0.2540 / 0.6081), each at most its anchor.
+   B. bench.py's partitioned_mixed_dialect (20 bodies, V 118,245,
+      1,158,831 constraints): Scene.build_partitioned(backend="pallas")
+      -> 2 programs, 'pass' (10 jacobi cubes with their own stiffness:
+      per-constraint tables) and 'sweep'; the host plan time; 32 warm
+      steps, three 32-step windows of PartitionedSceneEngine.run; every
+      body finite.  The checks start from a deformed state (positions
+      moved by N(0, 1 cm) draws, the same on both sides) and print how
+      many constraints start off rest: each jacobi body of the merged
+      program, from its state after the timed windows (on the ground),
+      against its solo 'pass' Engine for 4 steps (1e-4 m), and against
+      the solo Engine with another body's stiffness (at least 10x that
+      off: the tables decide); a reduced copy of the mix (2 + 2 small
+      cubes) on the card against the CPU for 10 steps; two xpbd cubes
+      with their own compliance merged (the sweep kernels with edge_c /
+      tet_c tables), 10 steps reaching the ground (1e-4 m): tet_cube(3)
+      against their solo 'sweep' Engines on the card (and 10x off with
+      the materials swapped), tet_cube(8) against the CPU, with its plan
+      tables read back through the constraint each slot solves.
+   C. scenes.batch_test() merged (procedural stand-ins, V 23,600,
+      213,020 constraints) -> 'pass', and 'auto' -> 'pass'; one warm
+      RUN_CHUNK, three 64-step windows.
+   D. bench.py's batched_128x_jacobi: BatchedEngine(tet_cube(10), jacobi
+      'gather', batch 128, jitter 0.002 from a seeded generator): three
+      50-step windows, ms/step and proj_per_sec; then B = 4 with a box
+      (one collide launch per iteration for all scenes) against the solo
+      'gather' Engine, 10 steps (1e-6 m).
+   E. DynamicMergedWorld growing by tet_cube(12) bodies across 100k
+      constraints: jacobi 'gather' -> 'pass', xpbd 'gather' -> 'sweep';
+      the retained bodies' x, v and lambdas array-equal across the
+      rebuild.
+   F. sample_scene().build_world(): 20 steps, the body resting on its box.
 11. Every kernel at north-star shapes against its plain PyTorch version
    on the card, from one predicted, perturbed state (the Jacobi ones with
    a box collider and the ground); time both.  Each Jacobi pass prints
@@ -80,7 +119,9 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    launches are slower.
 
 Every path runs with the kernels' launch counts set to 0 just before it and
-read just after.  The line before the last is {"kernels": [...]} (per
+read just after.  A {"scenes": {...}} line sums up phases A-D (with the
+card's name and power limit).  The line before the last is
+{"kernels": [...]} (per
 kernel: launches on its main path, max error against its plain version,
 the kernel's device time per call (torch.profiler, so the host's launch
 time between calls is not counted; should the profiler see nothing in
@@ -1279,6 +1320,524 @@ def jacobi_reference_check(sbt, device) -> float:
     return err
 
 
+# --------------------------------------------------------------------------
+# Scenes and convergence (phases A-F)
+# --------------------------------------------------------------------------
+
+# The JAX package's record of the 'auto' block scheme on the north star
+# (ss2 x it6, 120 steps, 30-step tail means) and the serial Gauss-Seidel
+# anchors (PLAN.md:174-200): residuals, not speeds, so they carry over.
+CONV_STEPS, CONV_TAIL = 120, 30
+CONV_JAX_RECORD = {"edge": 0.2328, "tet": 0.4892}
+CONV_SERIAL = {"edge": 0.2540, "tet": 0.6081}
+# a jacobi body of a merged program against its solo Engine: the Jacobi
+# dialect is body-independent, only fp32 summation orders differ
+SCENE_TOL = 1e-4
+# a batch's scenes against their solo Engines on the card
+BATCH_TOL = 1e-6
+# the scene checks' deformed start: position noise, m
+JITTER = 0.01
+# a merged body against a solo Engine with another body's material must be
+# this many SCENE_TOL off, else the check could not see a wrong table
+SWAP_FACTOR = 10.0
+
+
+def deform(eng, seed: int) -> None:
+    """Move an Engine's positions (x and x_star) by N(0, JITTER), drawn on
+    the host from ``seed``: a card and a CPU Engine get the same start."""
+    import dataclasses
+
+    s = eng.state
+    noise = np.random.default_rng(seed).normal(
+        0.0, JITTER, tuple(s.x.shape)).astype(np.float32)
+    x = s.x + torch.from_numpy(noise).to(s.x.device)
+    eng.state = dataclasses.replace(s, x=x, x_star=x.clone())
+
+
+def off_rest(topo, x) -> str:
+    """How many constraints of ``topo`` at positions ``x`` are more than
+    1e-5 of their rest value away from it: the corrections a check of
+    their stiffness or compliance can see."""
+    e, t = topo.edges.astype(np.int64), topo.tets.astype(np.int64)
+    length = np.linalg.norm(x[e[:, 0]] - x[e[:, 1]], axis=1)
+    ne = int((np.abs(length - topo.edge_rest)
+              > 1e-5 * np.abs(topo.edge_rest)).sum())
+    vol = np.einsum("ij,ij->i", np.cross(x[t[:, 1]] - x[t[:, 0]],
+                                         x[t[:, 2]] - x[t[:, 0]]),
+                    x[t[:, 3]] - x[t[:, 0]]) / 6.0
+    nt = int((np.abs(vol - topo.tet_rest_vol)
+              > 1e-5 * np.abs(topo.tet_rest_vol)).sum())
+    return (f"{ne}/{len(e)} edges and {nt}/{len(t)} tets start off rest")
+
+
+def merged_vs_solo(sbt, eng, voffs, bodies, knob, backend, steps,
+                   seed) -> tuple:
+    """The merged Engine ``eng`` (its current state deformed) and a solo
+    Engine per body from its slice of that start, ``steps`` steps; solos
+    with the material of the body half the list away too.  (off-rest
+    summary, max err against the own material, min over bodies of the
+    max err against the other material)."""
+    import dataclasses
+
+    deform(eng, seed)
+    start = eng.state
+    summary = off_rest(eng.topology, start.x.cpu().numpy())
+    runs = []
+    for shift in (0, len(bodies) // 2):
+        solos = []
+        for i, (_, topo, _, _) in enumerate(bodies):
+            params = bodies[(i + shift) % len(bodies)][2]
+            solo = sbt.Engine(topo, params.replace(**{knob: backend}),
+                              device=eng.device)
+            sl = slice(int(voffs[i]), int(voffs[i + 1]))
+            solo.state = dataclasses.replace(
+                solo.state, x=start.x[sl].clone(), v=start.v[sl].clone(),
+                x_star=start.x[sl].clone())
+            solos.append(solo.run(steps, DT))
+        runs.append(solos)
+    eng.run(steps, DT)
+    merged = eng.positions()
+    errs = [[float(np.abs(merged[voffs[i]:voffs[i + 1]]
+                          - s.positions()).max())
+             for i, s in enumerate(solos)] for solos in runs]
+    return summary, max(errs[0]), min(errs[1])
+
+
+def window_ms(label: str, run, steps: int, windows: int = 3) -> float:
+    """Host-clock ms/step of ``run(steps)`` (which ends in a synchronize):
+    ``windows`` windows, each printed; their median."""
+    ms = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        run(steps)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 / steps)
+    print(f"{label}: ms/step in {windows} windows of {steps} steps: "
+          f"{', '.join(f'{m:.4f}' for m in ms)}", flush=True)
+    return float(np.median(ms))
+
+
+def check_launched(counts: dict, names, label: str) -> None:
+    for name in names:
+        if not counts[name] > 0:
+            raise AssertionError(f"{label}: {name} was not launched: "
+                                 f"{counts}")
+
+
+def convergence_at_scale(sbt, topo, device) -> dict:
+    """Phase A: run_curves 'blocks_pallas' (the sweep kernels) on the
+    north star, ss2 x it6, 120 steps; the 30-step tails against the JAX
+    record and the serial anchors."""
+    from softbodysim_torch.perf.convergence import run_curves
+
+    params = sbt.SolverParams(dialect="xpbd", substeps=2, iterations=6)
+    reset_counts()
+    t0 = time.perf_counter()
+    curves = run_curves(topo, params, CONV_STEPS,
+                        orderings=("blocks_pallas",), device=device)
+    counts = read_counts()
+    c = curves["blocks_pallas"]
+    tails = {fam: float(np.mean(c[fam][-CONV_TAIL:])) for fam in ("edge",
+                                                                  "tet")}
+    print(f"phase A convergence (tet_cube(47), ss2 x it6, 'auto' scheme, "
+          f"{CONV_STEPS} steps on the sweep kernels, "
+          f"{time.perf_counter() - t0:.1f} s): launches {counts}",
+          flush=True)
+    for fam, tail in tails.items():
+        print(f"  {fam} residual, {CONV_TAIL}-step tail mean {tail:.4f}: "
+              f"{tail / CONV_SERIAL[fam]:.3f}x the serial anchor "
+              f"{CONV_SERIAL[fam]}, {tail / CONV_JAX_RECORD[fam]:.3f}x the "
+              f"JAX record {CONV_JAX_RECORD[fam]}", flush=True)
+    print(json.dumps({"convergence": {
+        "tails": tails, "jax_record": CONV_JAX_RECORD,
+        "serial_anchor": CONV_SERIAL,
+        "energy_first_last": [float(c["energy"][0]),
+                              float(c["energy"][-1])]}}), flush=True)
+    check_launched(counts, ("w_fill", "edge_sweep", "tet_sweep"), "phase A")
+    if not all(np.isfinite(c[k]).all() for k in c):
+        raise AssertionError("non-finite convergence curves")
+    for fam, tail in tails.items():
+        if not tail <= CONV_SERIAL[fam]:
+            raise AssertionError(f"the {fam} tail {tail} is above the "
+                                 f"serial anchor {CONV_SERIAL[fam]}")
+    return tails
+
+
+def partitioned_bodies(sbt, scenes, full: bool) -> list:
+    """bench.py's partitioned_mixed_dialect world (bench.py:214-227): 10
+    jacobi cubes with 10 edge stiffnesses and 10 xpbd cubes; ``full``
+    False: a reduced copy of the same mix (2 + 2 small cubes)."""
+    px = sbt.SolverParams(dialect="xpbd", substeps=2, iterations=6)
+    n = 10 if full else 2
+    bodies = []
+    for i in range(n):
+        cells = ((11 + (i % 3), 11 + ((i + 1) % 2), 11) if full
+                 else (3 + i, 3, 4))
+        t = sbt.meshes.tet_cube(*cells, size=0.5,
+                                center=(i * 1.2 - 6.0, 1.0, -1.0))
+        bodies.append((f"j{i}", t, scenes._params(edge=0.5 + 0.04 * i,
+                                                  vol=1.0), {}))
+    for i in range(n):
+        cells = ((20 + (i % 3), 20 + ((i + 1) % 2), 20) if full
+                 else (4, 3 + i, 3))
+        t = sbt.meshes.tet_cube(*cells, size=1.0,
+                                center=(i * 1.5 - 7.0, 1.2, 1.5))
+        bodies.append((f"x{i}", t, px, {}))
+    return bodies
+
+
+def check_compliance_tables(eng) -> int:
+    """The sweep Engine's per-constraint compliance in its plans, read
+    back through the constraint each packed slot solves (the slot's layout
+    vertices matched to the public constraint with the same vertices):
+    every live slot must hold that constraint's compliance, every pad slot
+    0.  Returns the live slots checked."""
+    step = eng._raw_step
+    old2new = step._old2new.cpu().numpy()
+    live_slots = 0
+    for fam, cons, table in (("edges", eng.topology.edges, step._edge_c),
+                             ("tets", eng.topology.tets, step._tet_c)):
+        plan = step.gpu_plans[fam]
+        if table is None or plan.atab is None:
+            raise AssertionError(f"no {fam} compliance table")
+        public = {tuple(sorted(r)): i for i, r in enumerate(
+            old2new[cons.astype(np.int64)].tolist())}
+        live = plan.verts[:, 0] >= 0
+        ids = [public[tuple(sorted(r))] for r in plan.verts[live].tolist()]
+        want = np.maximum(np.asarray(table, np.float32), 0.0)[ids]
+        if (sorted(ids) != list(range(len(cons)))
+                or not np.array_equal(plan.atab[live], want)
+                or plan.atab[~live].any()):
+            raise AssertionError(f"the {fam} compliance table does not "
+                                 f"follow its constraints")
+        live_slots += int(live.sum())
+    return live_slots
+
+
+def partitioned_path(sbt, device) -> tuple:
+    """Phase B: partitioned_mixed_dialect at full size; (ms/step, host
+    plan s, [(label, program Engine, its own ms/step)])."""
+    from softbodysim_torch.api import scenes
+
+    t0 = time.perf_counter()
+    bodies = partitioned_bodies(sbt, scenes, full=True)
+    t_topo = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    part = scenes.Scene(name="partitioned_mixed", colliders=[],
+                        bodies=bodies).build_partitioned(backend="pallas",
+                                                         device=device)
+    t_plan = time.perf_counter() - t0
+    backends = [e.backend for e, _, _ in part.entries]
+    sizes = [(e.topology.num_particles,
+              e.topology.num_edges + e.topology.num_tets)
+             for e, _, _ in part.entries]
+    print(f"phase B partitioned_mixed_dialect: 20 bodies, V "
+          f"{sum(t.num_particles for _, t, _, _ in bodies)}, constraints "
+          f"{sum(t.num_edges + t.num_tets for _, t, _, _ in bodies)}; "
+          f"topologies {t_topo:.2f} s, build_partitioned (host plans) "
+          f"{t_plan:.2f} s; programs {part.num_programs}, backends "
+          f"{backends}, (V, constraints) {sizes}", flush=True)
+    if part.num_programs != 2 or backends != ["pass", "sweep"]:
+        raise AssertionError(f"expected 2 programs on ('pass', 'sweep'): "
+                             f"{backends}")
+    part.run(32, DT)
+    counts = read_counts()
+    print(f"phase B launches (32 warm steps): {counts}", flush=True)
+    check_launched(counts, ("jacobi_edge_pass", "jacobi_tet_pass_collide",
+                            "w_fill", "edge_sweep", "tet_sweep"), "phase B")
+    ms = window_ms("phase B partitioned_mixed_dialect", part.run, 32)
+    # each program alone, for its profile's busy share
+    programs = [(f"partitioned_mixed_dialect {e.backend} program", e,
+                 timed_window(e, 32)) for e, _, _ in part.entries]
+    pos = part.positions()
+    bad = [n for n, x in pos.items() if not np.isfinite(x).all()]
+    if bad or len(pos) != 20:
+        raise AssertionError(f"non-finite bodies {bad}")
+
+    # each jacobi body of the merged 'pass' program against its solo
+    # 'pass' Engine, 4 steps from its state after the windows, deformed
+    jeng, jnames, voffs = part.entries[0]
+    summary, err, other = merged_vs_solo(sbt, jeng, voffs, bodies[:10],
+                                         "jacobi_backend", "pass", 4, 50)
+    print(f"phase B jacobi bodies of the merged 'pass' program vs their "
+          f"solo 'pass' Engines, 4 steps from the windows' end state "
+          f"deformed ({summary}): max abs err {err:.3e} (tol {SCENE_TOL}); "
+          f"vs solo Engines with the stiffness of the body 5 away: min "
+          f"over bodies {other:.3e} (must exceed "
+          f"{SWAP_FACTOR * SCENE_TOL})", flush=True)
+    if not err <= SCENE_TOL:
+        raise AssertionError(f"merged jacobi bodies disagree ({err})")
+    if not other > SWAP_FACTOR * SCENE_TOL:
+        raise AssertionError(f"the check cannot tell the bodies' "
+                             f"stiffness apart ({other})")
+
+    # a reduced copy of the mix, the card against the CPU
+    small = partitioned_bodies(sbt, scenes, full=False)
+    runs = {}
+    for dev in (device, torch.device("cpu")):
+        eng = scenes.Scene(name="mix", colliders=[], bodies=small
+                           ).build_partitioned(backend="pallas", device=dev)
+        for i, (e, _, _) in enumerate(eng.entries):
+            deform(e, 60 + i)
+        if dev.type == "cuda":
+            summary = "; ".join(off_rest(e.topology,
+                                         e.state.x.cpu().numpy())
+                                for e, _, _ in eng.entries)
+        for _ in range(10):
+            eng.step(DT)
+        runs[dev.type] = eng.positions()
+    err = max(float(np.abs(runs["cuda"][n] - runs["cpu"][n]).max())
+              for n in runs["cpu"])
+    print(f"phase B reduced mix (2 + 2 cubes), card vs CPU, 10 steps from "
+          f"a deformed start ({summary}): max abs err {err:.3e} (tol "
+          f"{SCENE_TOL})", flush=True)
+    if not err <= SCENE_TOL:
+        raise AssertionError(f"the reduced mix disagrees with the CPU "
+                             f"({err})")
+
+    # two xpbd cubes with their own compliance: the sweep kernels with
+    # edge_c / tet_c tables.  Small cubes, whose merged sweep plans order
+    # each body's constraints as its solo plans do, against solo 'sweep'
+    # Engines (no table); larger ones against the CPU, their tables read
+    # back through the constraint each packed slot solves
+    base = sbt.SolverParams(dialect="xpbd", substeps=2, iterations=6)
+    materials = (base.replace(edge_compliance=1e-4, volume_compliance=0.0),
+                 base.replace(edge_compliance=5e-3, volume_compliance=1e-3))
+
+    def pair(n):
+        return scenes.Scene(name="compliance", colliders=[], bodies=[
+            (f"b{i}", sbt.meshes.tet_cube(n, n, n - i, size=0.4,
+                                          center=(1.2 * i - 0.6, 0.25, 0.0)),
+             p, {}) for i, p in enumerate(materials)])
+
+    reset_counts()
+    scene = pair(3)
+    xeng, voffs = scene.build_merged(backend="pallas", device=device)
+    summary, err, other = merged_vs_solo(sbt, xeng, voffs, scene.bodies,
+                                         "xpbd_backend", "sweep", 10, 70)
+    counts = read_counts()
+    check_launched(counts, ("w_fill", "edge_sweep", "tet_sweep"),
+                   "phase B compliance")
+    scene = pair(8)
+    runs = {}
+    for dev in (device, torch.device("cpu")):
+        eng, _ = scene.build_merged(backend="pallas", device=dev)
+        deform(eng, 71)
+        runs[dev.type] = eng.run(10, DT).positions()
+    err_cpu = float(np.abs(runs["cuda"] - runs["cpu"]).max())
+    slots = check_compliance_tables(eng)
+    print(f"phase B mixed compliance (2 xpbd cubes, sweep kernels with "
+          f"edge_c / tet_c; launches {counts}): tet_cube(3) merged vs solo "
+          f"'sweep' Engines, 10 steps ({summary}), max abs err {err:.3e} "
+          f"(tol {SCENE_TOL}); vs the other body's compliance {other:.3e} "
+          f"(must exceed {SWAP_FACTOR * SCENE_TOL}); tet_cube(8) card vs "
+          f"CPU {err_cpu:.3e} (tol {SCENE_TOL}); its {slots} live plan "
+          f"slots hold their constraint's compliance", flush=True)
+    if not max(err, err_cpu) <= SCENE_TOL:
+        raise AssertionError(f"the mixed-compliance merge disagrees "
+                             f"({err}, {err_cpu})")
+    if not other > SWAP_FACTOR * SCENE_TOL:
+        raise AssertionError(f"the check cannot tell the bodies' "
+                             f"compliance apart ({other})")
+    return ms, t_plan, programs
+
+
+def batch_test_path(sbt, device) -> tuple:
+    """Phase C: BatchTest merged into one 'pass' program; (ms/step, the
+    warm Engine)."""
+    from softbodysim_torch.api import scenes
+
+    scene = scenes.batch_test()
+    reset_counts()
+    t0 = time.perf_counter()
+    eng, voffs = scene.build_merged(device=device)
+    t_plan = time.perf_counter() - t0
+    auto_backend = scene.build_merged(backend="auto",
+                                      device=device)[0].backend
+    topo = eng.topology
+    print(f"phase C BatchTest merged (procedural stand-ins: the "
+          f"reference's assets are absent): {len(scene.bodies)} bodies, V "
+          f"{topo.num_particles}, constraints "
+          f"{topo.num_edges + topo.num_tets}; build {t_plan:.2f} s; "
+          f"backend {eng.backend}, 'auto' -> {auto_backend}", flush=True)
+    if eng.backend != "pass" or auto_backend != "pass":
+        raise AssertionError(f"BatchTest merged on {eng.backend!r} / auto "
+                             f"{auto_backend!r}, expected 'pass'")
+    eng.run(eng.RUN_CHUNK, DT)
+    eng.block()
+    counts = read_counts()
+    print(f"phase C launches (one warm RUN_CHUNK): {counts}", flush=True)
+    check_launched(counts, ("jacobi_edge_pass", "jacobi_tet_pass_collide"),
+                   "phase C")
+    if counts["collide"] or counts["jacobi_tet_pass"]:
+        raise AssertionError(f"the collide stage ran outside the tet pass: "
+                             f"{counts}")
+    ms = window_ms("phase C BatchTest merged", lambda n: eng.run(n, DT),
+                   2 * eng.RUN_CHUNK)
+    pos = eng.positions()
+    if not np.isfinite(pos).all():
+        raise AssertionError("non-finite BatchTest positions")
+    return ms, eng
+
+
+def batched_path(sbt, device) -> tuple:
+    """Phase D: bench.py's batched_128x_jacobi (bench.py:174-192) on the
+    'gather' backend, one step for all 128 scenes; (ms/step, proj/s, the
+    warm batch for profile_window)."""
+    from softbodysim_torch.parallel import BatchedEngine
+
+    topo = sbt.meshes.tet_cube(10, 10, 10, size=0.8, center=(0.0, 1.0, 0.0))
+    params = sbt.SolverParams(**{**JACOBI, "jacobi_backend": "gather"})
+    batch, steps = 128, 50
+    reset_counts()
+    eng = BatchedEngine(topo, params, batch=batch, pos_jitter=0.002,
+                        key=torch.Generator().manual_seed(SEED),
+                        device=device)
+    eng.step(DT)
+    eng.block()
+    counts = read_counts()
+
+    def run(n):
+        for _ in range(n):
+            eng.step(DT)
+
+    ms = window_ms("phase D batched_128x_jacobi", run, steps)
+    proj = (batch * (topo.num_edges + topo.num_tets) * params.iterations
+            * params.substeps * 1e3 / ms)
+    print(f"phase D batched_128x_jacobi (tet_cube(10): V "
+          f"{topo.num_particles}, E {topo.num_edges}, T {topo.num_tets}; "
+          f"B {batch}, backend {eng.backend}): {ms:.4f} ms/step, "
+          f"proj_per_sec {proj:.4e}; launches in one step {counts}",
+          flush=True)
+    if not np.isfinite(eng.positions()).all():
+        raise AssertionError("non-finite batched positions")
+
+    # B = 4, no jitter, a box: the collide kernel once per iteration for
+    # all 4 scenes; each scene against the solo 'gather' Engine (the four
+    # solo Engines of identical scenes are one)
+    box = sbt.Colliders.build(
+        [sbt.Colliders.box((0.0, 0.55, 0.0), (0.6, 0.1, 0.6))],
+        device=device)
+    small = BatchedEngine(topo, params, batch=4, colliders=box,
+                          device=device)
+    solo = sbt.Engine(topo, params, colliders=box, device=device)
+    reset_counts()
+    for _ in range(10):
+        small.step(DT)
+    small.block()
+    c4 = read_counts()
+    for _ in range(10):
+        solo.step(DT)
+    err = float(np.abs(small.positions() - solo.positions()[None]).max())
+    expected = 10 * params.substeps * params.iterations
+    print(f"phase D check: B=4 with a box, 10 steps: collide launches "
+          f"{c4['collide']} (expected {expected}), max |scene - solo| "
+          f"{err:.3e} m (tol {BATCH_TOL})", flush=True)
+    if c4["collide"] != expected:
+        raise AssertionError(f"collide launches {c4}")
+    if not err <= BATCH_TOL:
+        raise AssertionError(f"batched scenes disagree with solo ({err})")
+    return ms, proj, BatchRunner(eng)
+
+
+class BatchRunner:
+    """The Engine calls profile_window makes, on a BatchedEngine."""
+
+    def __init__(self, eng):
+        self.eng, self.backend = eng, eng.backend
+
+    def run(self, steps, dt):
+        for _ in range(steps):
+            self.eng.step(dt)
+        return self
+
+    def block(self):
+        self.eng.block()
+        return self
+
+
+def dynamic_path(sbt, device) -> dict:
+    """Phase E: DynamicMergedWorld growing across the kernel threshold,
+    jacobi ('gather' -> 'pass') and xpbd ('gather' -> 'sweep', lambdas
+    carried); retained state array-equal across each rebuild."""
+    from softbodysim_torch.solver.select import SWEEP_MIN_CONSTRAINTS
+
+    out = {}
+    for dialect, kernel in (("jacobi", "pass"), ("xpbd", "sweep")):
+        params = (sbt.SolverParams(**JACOBI) if dialect == "jacobi" else
+                  sbt.SolverParams(dialect="xpbd", substeps=2, iterations=6))
+        w = sbt.DynamicMergedWorld(params, device=device)
+        n = 0
+
+        def add():
+            nonlocal n
+            w.add_body(f"b{n}", sbt.meshes.tet_cube(
+                12, 12, 12, size=0.5, center=(n * 0.8, 0.6, 0.0)))
+            n += 1
+
+        reset_counts()
+        while True:
+            add()
+            topo = w.engine.topology
+            if topo.num_edges + topo.num_tets >= SWEEP_MIN_CONSTRAINTS:
+                break
+            before = w.backend
+            w.run(8, DT)
+            keep = w.engine.state
+        if before != "gather" or w.backend != kernel:
+            raise AssertionError(f"{dialect}: backend {before!r} -> "
+                                 f"{w.backend!r}, expected 'gather' -> "
+                                 f"{kernel!r}")
+        new = w.engine.state
+        for f in ("x", "v", "edge_lambda", "tet_lambda"):
+            old_t, new_t = getattr(keep, f), getattr(new, f)
+            if not torch.equal(new_t[:len(old_t)], old_t):
+                raise AssertionError(f"{dialect}: {f} changed across the "
+                                     f"rebuild")
+        if dialect == "xpbd" and not keep.edge_lambda.abs().max() > 0:
+            raise AssertionError("no lambda to carry")
+        w.run(8, DT)
+        pos = w.positions()
+        counts = read_counts()
+        print(f"phase E {dialect}: {n} tet_cube(12) bodies, "
+              f"{topo.num_edges + topo.num_tets} constraints: 'gather' -> "
+              f"{w.backend!r}; x, v and lambdas of the retained bodies "
+              f"array-equal across the rebuild; launches {counts}",
+              flush=True)
+        if not np.isfinite(pos).all():
+            raise AssertionError(f"{dialect}: non-finite positions")
+        check_launched(counts, (("jacobi_edge_pass",) if dialect == "jacobi"
+                                else ("edge_sweep", "tet_sweep")),
+                       "phase E")
+        out[dialect] = counts
+    return out
+
+
+def sample_world_path(sbt, device) -> dict:
+    """Phase F: sample_scene().build_world() on the card, 20 steps."""
+    from softbodysim_torch.api import scenes
+
+    reset_counts()
+    world = scenes.sample_scene().build_world(device=device)
+    for _ in range(20):
+        world.step()
+    world.sync()
+    counts = read_counts()
+    pos = world.positions()["fumo"]
+    min_y = float(pos[:, 1].min())
+    rest = FLOOR_BOX_TOP + 0.01               # the box top + its radius
+    print(f"phase F SampleScene world: 20 steps, min y {min_y:.6f} (resting "
+          f"height {rest}), backend {world.bodies[0].engine.backend}, "
+          f"launches {counts}", flush=True)
+    if not np.isfinite(pos).all():
+        raise AssertionError("non-finite SampleScene positions")
+    if not abs(min_y - rest) <= 2e-3:
+        raise AssertionError(f"the body is not resting on its box ({min_y})")
+    check_launched(counts, ("collide",), "phase F")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -1346,6 +1905,23 @@ def main() -> int:
     sample_scene(sbt, device)
     jacobi_reference_check(sbt, device)
 
+    # the scene paths, timed before any profiler runs
+    tails = convergence_at_scale(sbt, topo, device)
+    p_ms, p_plan, programs = partitioned_path(sbt, device)
+    bt_ms, bt_eng = batch_test_path(sbt, device)
+    bd_ms, bd_proj, bd_eng = batched_path(sbt, device)
+    dynamic_path(sbt, device)
+    sample_world_path(sbt, device)
+    ksw.raise_on_timeouts()
+    print(json.dumps({"scenes": {
+        "convergence_tails": tails,
+        "partitioned_mixed_dialect_ms_per_step": p_ms,
+        "partitioned_host_plan_s": p_plan,
+        "batch_test_merged_ms_per_step": bt_ms,
+        "batched_128x_jacobi_ms_per_step": bd_ms,
+        "batched_128x_jacobi_proj_per_sec": bd_proj, "card": card}}),
+        flush=True)
+
     kres = compare_sweep_kernels(sbt, ksw, topo, device)
     kres.update(compare_legacy_kernels(sbt, ksw, topo, device))
     for name in ("w_fill", "edge_sweep", "tet_sweep", "legacy_edge_sweep",
@@ -1357,7 +1933,12 @@ def main() -> int:
                                   ("jacobi tet_ball(6)", b_eng, 20, b_ms),
                                   ("xpbd legacy 128-wide", l_eng, 2, l_ms),
                                   ("xpbd coloured SampleScene", c_eng, 1,
-                                   c_ms)):
+                                   c_ms),
+                                  *((label, e, 8, ms)
+                                    for label, e, ms in programs),
+                                  ("BatchTest merged", bt_eng, 64, bt_ms),
+                                  ("batched_128x_jacobi", bd_eng, 5,
+                                   bd_ms)):
         t0 = time.perf_counter()
         prof = profile_window(eng, steps, ms)
         print(json.dumps({"profile": label, **prof}), flush=True)

@@ -20,6 +20,12 @@ the fused collide kernel::
                      colliders=sbt.Colliders.build(
                          [sbt.Colliders.box((0, 0.1, 0), (1.5, 0.1, 1.5))]))
 
+Multi-body scenes: ``World`` (one Engine per body), ``Scene`` and its
+presets (``api/scenes.py``: per-body, grouped, merged into one mesh, or
+partitioned into the fewest merged programs), ``DynamicMergedWorld``
+(bodies added and removed mid-run), and ``parallel`` (batched copies of
+one body, grouped families, heterogeneous padded batches).
+
 Entry points run on the card (``cuda:0``) unless given ``device="cpu"``,
 where the kernels' plain PyTorch versions run instead (the tests).
 """
@@ -29,11 +35,15 @@ from .core.state import SimState, SolverParams, init_state
 from .core.topology import Topology, build_topology
 from .core import meshes
 from .solver import make_step
+from .api.dynamic import DynamicMergedWorld
 from .api.engine import Engine
+from .api.scenes import PartitionedSceneEngine, Scene
+from .api.world import World, Body
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Colliders", "SimState", "SolverParams", "init_state", "Topology",
-    "build_topology", "meshes", "make_step", "Engine",
+    "build_topology", "meshes", "make_step", "Engine", "World", "Body",
+    "DynamicMergedWorld", "Scene", "PartitionedSceneEngine",
 ]

@@ -51,8 +51,8 @@ class Engine:
         raises."""
         if mesh is not None:
             raise NotImplementedError(
-                "multi-device meshes are not ported yet (ROADMAP.md queue 1 "
-                "item 12)")
+                "multi-device meshes are not ported yet (ROADMAP.md queue 1, "
+                "'Multi-device')")
         if inv_mass_mode is None:
             # server dialect: tet-volume inverse masses; in-engine: density
             inv_mass_mode = "tet" if params.dialect == "xpbd" else "density"

@@ -11,9 +11,11 @@ the scenes slice and is not here.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
+
+from .topology import Topology, build_topology
 
 
 def _csr(num_particles: int, cons: np.ndarray):
@@ -146,3 +148,33 @@ def bucketize_padded(padded_arrays, mask: np.ndarray, deg: np.ndarray,
         out.append((vids, [a[vids, :cap] for a in padded_arrays],
                     mask[vids, :cap]))
     return out, pos
+
+
+def combine_topologies(topologies: Sequence[Topology]
+                       ) -> Tuple[Topology, List[slice]]:
+    """Merge bodies into one scene topology with offset indices: (merged,
+    slices), slices[i] selecting body i's particles.  The colourings are
+    rebuilt over the merged constraint lists (``merge_topologies`` keeps
+    the bodies' own colours instead)."""
+    verts, edges, tets, tris, slices = [], [], [], [], []
+    off = 0
+    for t in topologies:
+        n = t.num_particles
+        slices.append(slice(off, off + n))
+        verts.append(t.vertices)
+        if t.num_edges:
+            edges.append(t.edges.astype(np.int64) + off)
+        if t.num_tets:
+            tets.append(t.tets.astype(np.int64) + off)
+        if len(t.surface_tris):
+            tris.append(t.surface_tris.astype(np.int64) + off)
+        off += n
+
+    def cat(parts, width):
+        return (np.concatenate(parts, axis=0) if parts
+                else np.zeros((0, width), np.int64))
+
+    merged = build_topology(np.concatenate(verts, axis=0), cat(tets, 4),
+                            edges=cat(edges, 2), surface_tris=cat(tris, 3),
+                            orient=False)     # bodies are already oriented
+    return merged, slices

@@ -1,5 +1,6 @@
 """Procedural simulation meshes (NumPy; same generators as
-``softbodysim_tpu/core/meshes.py``, so topologies compare array-equal)."""
+``softbodysim_tpu/core/meshes.py``, so topologies compare array-equal):
+tet cubes and balls, and an edges-only cloth patch."""
 
 from __future__ import annotations
 
@@ -96,3 +97,48 @@ def icosphere(subdivisions: int = 1) -> Tuple[np.ndarray, np.ndarray]:
         verts = np.asarray(vlist)
         faces = np.asarray(new_faces, np.int64)
     return verts.astype(np.float32), faces
+
+
+def cloth_patch(nx: int = 64, ny: int = 64, size: float = 1.0,
+                bending: bool = True, pinned_corners: bool = True,
+                height: float = 1.0):
+    """Cloth patch: an (nx+1) x (ny+1) particle grid in the XZ plane at
+    ``height`` with structural, shear and (optionally) bending distance
+    constraints and no tets.  Returns (Topology, pinned corner ids)."""
+    xs = np.linspace(-0.5, 0.5, nx + 1) * size
+    zs = np.linspace(-0.5, 0.5, ny + 1) * size
+    gx, gz = np.meshgrid(xs, zs, indexing="ij")
+    verts = np.stack([gx, np.full_like(gx, height), gz],
+                     axis=-1).reshape(-1, 3).astype(np.float32)
+
+    def vid(i, j):
+        return i * (ny + 1) + j
+
+    edges = []
+    for i in range(nx + 1):
+        for j in range(ny + 1):
+            if i < nx:
+                edges.append([vid(i, j), vid(i + 1, j)])
+            if j < ny:
+                edges.append([vid(i, j), vid(i, j + 1)])
+            if i < nx and j < ny:
+                edges.append([vid(i, j), vid(i + 1, j + 1)])      # shear
+                edges.append([vid(i + 1, j), vid(i, j + 1)])      # shear
+            if bending and i < nx - 1:
+                edges.append([vid(i, j), vid(i + 2, j)])
+            if bending and j < ny - 1:
+                edges.append([vid(i, j), vid(i, j + 2)])
+    tris = []
+    for i in range(nx):
+        for j in range(ny):
+            tris.append([vid(i, j), vid(i, j + 1), vid(i + 1, j)])
+            tris.append([vid(i + 1, j), vid(i, j + 1), vid(i + 1, j + 1)])
+
+    topo = build_topology(verts, np.zeros((0, 4), np.int64),
+                          edges=np.asarray(edges, np.int64),
+                          surface_tris=np.asarray(tris, np.int64),
+                          orient=False)
+    pinned = (np.asarray([vid(0, 0), vid(0, ny), vid(nx, 0), vid(nx, ny)],
+                         np.int64)
+              if pinned_corners else np.zeros((0,), np.int64))
+    return topo, pinned

@@ -1,15 +1,15 @@
 """Host-side topology building: unique edges, boundary surface, orientation
 and greedy graph colouring (pure NumPy, off the hot path).
 
-A copy of ``softbodysim_tpu/core/topology.py`` (minus multi-body merging,
-which belongs to the scene slice): the port cannot import the JAX package,
-and topologies built here must compare array-equal with the JAX ones.
+A copy of ``softbodysim_tpu/core/topology.py``: the port cannot import the
+JAX package, and topologies built (and merged) here must compare
+array-equal with the JAX ones.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -26,6 +26,10 @@ class ColorGroups:
     idx: np.ndarray
     mask: np.ndarray
     order: np.ndarray
+
+    @property
+    def num_colors(self) -> int:
+        return self.idx.shape[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,23 +171,33 @@ def color_groups(constraints: np.ndarray, num_vertices: int,
     return ColorGroups(idx=idx, mask=mask, order=np.concatenate(groups))
 
 
-def build_topology(vertices: np.ndarray, tets: np.ndarray) -> Topology:
-    """Orientation, edges and surface, fp32 rest quantities in the
+def build_topology(vertices: np.ndarray, tets: np.ndarray,
+                   edges: Optional[np.ndarray] = None,
+                   surface_tris: Optional[np.ndarray] = None, *,
+                   orient: bool = True) -> Topology:
+    """Orientation, edges and surface (derived where not given, e.g. an
+    asset's stored lists or a cloth's edges), fp32 rest quantities in the
     reference's operation order, and colouring of a tet mesh."""
     vertices = np.asarray(vertices, np.float32).reshape(-1, 3)
-    tets = orient_tets_positive(vertices,
-                                np.asarray(tets, np.int64).reshape(-1, 4))
+    tets = np.asarray(tets, np.int64).reshape(-1, 4)
+    if orient:
+        tets = orient_tets_positive(vertices, tets)
 
     edge_colors_pre = tet_colors_pre = None
-    nat = None
-    if tets.size:
+    if (edges is None or surface_tris is None) and tets.size:
         from .native import native_build_topology
 
         nat = native_build_topology(vertices, tets)
-    if nat is not None:
-        edges, surface_tris, edge_colors_pre, tet_colors_pre = nat
-    else:
-        edges, surface_tris = build_edges_and_surface(vertices, tets)
+        if nat is not None:
+            n_edges, n_surface, ecol, tet_colors_pre = nat
+            if edges is None:
+                edges, edge_colors_pre = n_edges, ecol
+            if surface_tris is None:
+                surface_tris = n_surface
+    if edges is None or surface_tris is None:
+        d_edges, d_tris = build_edges_and_surface(vertices, tets)
+        edges = d_edges if edges is None else edges
+        surface_tris = d_tris if surface_tris is None else surface_tris
     edges = np.asarray(edges, np.int64).reshape(-1, 2)
     surface_tris = np.asarray(surface_tris, np.int64).reshape(-1, 3)
 
@@ -212,3 +226,63 @@ def build_topology(vertices: np.ndarray, tets: np.ndarray) -> Topology:
         edge_colors=color_groups(edges, nv, colors=edge_colors_pre),
         tet_colors=color_groups(tets, nv, colors=tet_colors_pre),
     )
+
+
+def _merge_color_groups(parts_cg, parts_offsets) -> ColorGroups:
+    """Union same-index colours across vertex-disjoint parts: the merged
+    family is validly coloured with max_parts(num_colors) colours, and each
+    part's sweep order within a colour is kept (parts in list order)."""
+    num_colors = max(cg.num_colors for cg in parts_cg)
+    per_color = []
+    for c in range(num_colors):
+        rows = [cg.idx[c][cg.mask[c]].astype(np.int64) + off
+                for cg, off in zip(parts_cg, parts_offsets)
+                if c < cg.num_colors]
+        per_color.append(np.concatenate(rows) if rows
+                         else np.zeros((0,), np.int64))
+    k = max(1, max(len(g) for g in per_color))
+    idx = np.zeros((num_colors, k), np.int32)
+    mask = np.zeros((num_colors, k), bool)
+    for ci, g in enumerate(per_color):
+        idx[ci, : len(g)] = g
+        mask[ci, : len(g)] = True
+    live = [g for g in per_color if len(g)]
+    order = np.concatenate(live) if live else np.zeros((0,), np.int64)
+    return ColorGroups(idx=idx, mask=mask, order=order)
+
+
+def merge_topologies(parts: Sequence[Topology]
+                     ) -> Tuple[Topology, np.ndarray]:
+    """Disjoint union of topologies: a multi-body scene as one sim mesh,
+    bodies as vertex ranges of one particle table (no constraint crosses a
+    body boundary, so each body's physics is its own).  Returns (merged,
+    vertex_offsets), vertex_offsets[i] body i's first vertex id (length
+    len(parts) + 1)."""
+    parts = list(parts)
+    if not parts:
+        raise ValueError("merge_topologies needs at least one part")
+    counts = np.array([[p.num_particles, p.num_edges, p.num_tets]
+                       for p in parts], np.int64)
+    offs = np.zeros((len(parts) + 1, 3), np.int64)
+    np.cumsum(counts, axis=0, out=offs[1:])
+    voffs = offs[:, 0]
+
+    def cat(field, shift):
+        return np.concatenate(
+            [np.asarray(getattr(p, field), np.int64) + voffs[i] if shift
+             else np.asarray(getattr(p, field))
+             for i, p in enumerate(parts)], axis=0)
+
+    merged = Topology(
+        vertices=cat("vertices", False).astype(np.float32),
+        edges=cat("edges", True).astype(np.int32),
+        tets=cat("tets", True).astype(np.int32),
+        surface_tris=cat("surface_tris", True).astype(np.int32),
+        edge_rest=cat("edge_rest", False).astype(np.float32),
+        tet_rest_vol=cat("tet_rest_vol", False).astype(np.float32),
+        edge_colors=_merge_color_groups([p.edge_colors for p in parts],
+                                        offs[:-1, 1]),
+        tet_colors=_merge_color_groups([p.tet_colors for p in parts],
+                                       offs[:-1, 2]),
+    )
+    return merged, voffs

@@ -1,5 +1,6 @@
-"""Carry a state, a collider set and solver parameters between the JAX
-package and the port as plain NumPy data (used by the parity tests).
+"""Carry a state (one scene's, or a batch's with a leading scene axis), a
+topology, a collider set and solver parameters between the JAX package
+and the port as plain NumPy data (used by the parity tests).
 Imports neither jax nor the JAX package: the caller converts its arrays
 with ``np.asarray``."""
 
@@ -13,6 +14,7 @@ import torch
 
 from ..collide.primitives import Colliders
 from ..core.state import SimState, SolverParams, resolve_device
+from ..core.topology import ColorGroups, Topology
 
 STATE_FIELDS = tuple(f.name for f in dataclasses.fields(SimState))
 COLLIDER_FIELDS = tuple(f.name for f in dataclasses.fields(Colliders))
@@ -31,6 +33,38 @@ def state_from_numpy(arrays: Dict[str, np.ndarray], device=None) -> SimState:
     return SimState(**{
         k: torch.from_numpy(np.array(arrays[k], np.float32)).to(dev)
         for k in STATE_FIELDS})
+
+
+def batched_state_from_numpy(arrays: Dict[str, np.ndarray], batch: int,
+                             device=None) -> SimState:
+    """A batched SimState (every field with a leading axis of ``batch``
+    scenes, as ``parallel.batching`` keeps it) on ``device``."""
+    state = state_from_numpy(arrays, device)
+    for k in STATE_FIELDS:
+        shape = tuple(getattr(state, k).shape)
+        if not shape or shape[0] != batch:
+            raise ValueError(f"{k}: shape {shape} has no leading axis of "
+                             f"{batch} scenes")
+    return state
+
+
+def topology_from_fields(obj) -> Topology:
+    """A Topology copying the arrays of ``obj``'s fields of the same names
+    (for example a JAX package Topology), colour groups included."""
+    def groups(g):
+        return ColorGroups(idx=np.asarray(g.idx, np.int32),
+                           mask=np.asarray(g.mask, bool),
+                           order=np.asarray(g.order, np.int64))
+
+    return Topology(
+        vertices=np.asarray(obj.vertices, np.float32),
+        edges=np.asarray(obj.edges, np.int32),
+        tets=np.asarray(obj.tets, np.int32),
+        surface_tris=np.asarray(obj.surface_tris, np.int32),
+        edge_rest=np.asarray(obj.edge_rest, np.float32),
+        tet_rest_vol=np.asarray(obj.tet_rest_vol, np.float32),
+        edge_colors=groups(obj.edge_colors),
+        tet_colors=groups(obj.tet_colors))
 
 
 def state_to_numpy(state: SimState) -> Dict[str, np.ndarray]:

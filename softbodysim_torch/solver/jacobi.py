@@ -143,7 +143,8 @@ class JacobiStep:
                     (i64(vids), i64(arrs[0]),
                      _as_table(topology.edge_rest[arrs[1]], dev),
                      torch.as_tensor(m).to(dev),
-                     None if ek is None else _as_table(ek[arrs[1]], dev))
+                     None if ek is None else _as_table(ek[arrs[1]], dev),
+                     i64(arrs[1]))
                     for vids, arrs, m in ebuckets]
                 self.e_pos = i64(e_pos)
             if self.has_tets:
@@ -170,10 +171,17 @@ class JacobiStep:
     # ---- stages -----------------------------------------------------------
 
     def _edges(self, x, w, k_edge):
+        """k_edge: a float or an (E,) tensor (public order)."""
         if self.backend == "gather":
-            parts = [edge_gather_deltas(
-                x, w, ob, rb, mb, k_edge if kb is None else kb * k_edge,
-                vids=vb) for vb, ob, rb, mb, kb in self.e_buckets]
+            table = isinstance(k_edge, torch.Tensor)
+
+            def k_of(kb, eb):
+                k = k_edge[eb] if table else k_edge
+                return k if kb is None else kb * k
+
+            parts = [edge_gather_deltas(x, w, ob, rb, mb, k_of(kb, eb),
+                                        vids=vb)
+                     for vb, ob, rb, mb, kb, eb in self.e_buckets]
             delta = torch.cat([p[0] for p in parts])[self.e_pos]
             cnt = torch.cat([p[1] for p in parts])[self.e_pos]
         else:
@@ -212,16 +220,22 @@ class JacobiStep:
                  volume_stiffness=None, sor_omega=None,
                  colliders_rt: Optional[Colliders] = None,
                  local_to_world_rt=None, world_to_local_rt=None) -> SimState:
-        """One step.  Overrides: the stiffness scalars and omega; collider
-        poses for this step (same count as the make-time set); the body
-        transforms for this step (only with make-time transforms)."""
+        """One step.  Overrides: the stiffness (each a scalar, or a
+        per-constraint tensor in public order on the step's device, as a
+        batch of scenes with a stiffness each passes it) and omega;
+        collider poses for this step (same count as the make-time set);
+        the body transforms for this step (only with make-time
+        transforms)."""
         p = self.params
-        k_edge = f32((1.0 if self.edge_k is not None
-                      else p.edge_stiffness) if edge_stiffness is None
-                     else edge_stiffness)
-        k_vol = f32((1.0 if self.tet_k is not None
-                     else p.volume_stiffness) if volume_stiffness is None
-                    else volume_stiffness)
+
+        def stiffness(override, table, default):
+            if isinstance(override, torch.Tensor):
+                return override.to(self.device, torch.float32)
+            return f32((1.0 if table is not None else default)
+                       if override is None else override)
+
+        k_edge = stiffness(edge_stiffness, self.edge_k, p.edge_stiffness)
+        k_vol = stiffness(volume_stiffness, self.tet_k, p.volume_stiffness)
         omega = f32(p.sor_omega if sor_omega is None else sor_omega)
         l2w = self.l2w if local_to_world_rt is None else _as_table(
             local_to_world_rt, self.device)
@@ -281,8 +295,8 @@ def make_jacobi_step(topology, params: SolverParams,
     if params.self_collision or (params.surface_collision
                                  and len(topology.surface_tris)):
         raise NotImplementedError(
-            "self / surface collision is not ported yet (ROADMAP.md queue 1 "
-            "item 9)")
+            "self / surface collision is not ported yet (ROADMAP.md queue 1, "
+            "'Contact')")
     backend, tiles = resolve_with_tiles(
         topology, params, device=device, local_to_world=local_to_world,
         num_colliders=0 if colliders is None else colliders.count)

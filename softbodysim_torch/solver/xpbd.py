@@ -26,7 +26,7 @@ applies colliders (world space, particle radius 0) after the ground clamp
 in each iteration; on a CUDA device that stage is the fused collide
 kernel (``kernels/collide.py``), launched outside the graph, on the CPU its
 plain version.  Self and surface collision are not ported (ROADMAP.md
-queue 1 item 9).
+queue 1, 'Contact').
 """
 
 from __future__ import annotations
@@ -110,11 +110,12 @@ class ColouredStep:
                                      and len(topology.surface_tris)):
             raise NotImplementedError(
                 "self / surface collision is not ported yet (ROADMAP.md "
-                "queue 1 item 9)")
+                "queue 1, 'Contact')")
         dev = self.device = resolve_device(device)
         self.params = params
         self.has_edges = topology.num_edges > 0
         self.has_tets = topology.num_tets > 0
+        self._counts = (topology.num_edges, topology.num_tets)
         self.colliders = None if colliders is None else colliders.to(dev)
         self._gravity = torch.tensor(params.gravity, dtype=torch.float32,
                                      device=dev)
@@ -144,20 +145,22 @@ class ColouredStep:
                         for s, e in slices],
                 perm=i64(order), inv=i64(np.argsort(order)))
         # on the card, the graph's static inputs: positions, inverse
-        # masses, lambdas, the compliance scalars (e_alpha, t_alpha)
+        # masses, lambdas, the colour-major alpha tables (edges, tets)
         self._buf = None if dev.type != "cuda" else dict(
             x=torch.zeros((V, 3), device=dev),
             w=torch.zeros((V,), device=dev),
             lam={fam: torch.zeros((n,), device=dev) for fam, n in (
                 ("edges", topology.num_edges), ("tets", topology.num_tets))
                 if fam in self._fam},
-            alpha=torch.zeros(2, device=dev))
-        self._alpha_now = None               # the scalars in _buf["alpha"]
+            alpha=[torch.zeros((n,), device=dev) for n in (
+                topology.num_edges, topology.num_tets)])
+        # the scalar each alpha table was filled with (None: a table)
+        self._alpha_now = [None, None]
 
     # ---- colour passes ----------------------------------------------------
 
     # lam: this step's own colour-major tensor, updated in place; x: new
-    # tensors per colour
+    # tensors per colour; alpha: a colour-major (n,) table
 
     def _edges(self, x, w, lam, alpha):
         f = self._fam["edges"]
@@ -165,7 +168,8 @@ class ColouredStep:
         zero = x.new_zeros((1, 3))
         for (s, e), vslot in zip(f["slices"], f["vslots"]):
             dlam, corr, w0, w1 = edge_dlambda(
-                x, w, i0a[s:e], i1a[s:e], f["rest"][s:e], lam[s:e], alpha)
+                x, w, i0a[s:e], i1a[s:e], f["rest"][s:e], lam[s:e],
+                alpha[s:e])
             rows = torch.cat([corr * w0[:, None], -corr * w1[:, None], zero])
             x = x + rows[vslot]
             lam[s:e] = lam[s:e] + dlam
@@ -177,15 +181,20 @@ class ColouredStep:
         for (s, e), vslot in zip(f["slices"], f["vslots"]):
             dlam, corrs = tet_dlambda(
                 x, w, [i[s:e] for i in f["idx"]], f["rest"][s:e], lam[s:e],
-                alpha)
+                alpha[s:e])
             x = x + torch.cat(corrs + [zero])[vslot]
             lam[s:e] = lam[s:e] + dlam
         return x
 
     def _solve(self, xs, w, lam, e_alpha, t_alpha):
         """One iteration but its collider stage: the colour passes, then the
-        ground clamp (Sim.cpp:187-195).  e_alpha / t_alpha: float32-exact
-        floats or 0-dim float32 tensors on xs's device (the same bits)."""
+        ground clamp (Sim.cpp:187-195).  e_alpha / t_alpha: colour-major
+        float32 tables on xs's device, or what broadcasts to one (a
+        float32-exact float, a 0-dim tensor: the same bits in every row)."""
+        e_alpha, t_alpha = (
+            torch.as_tensor(a, dtype=torch.float32, device=xs.device).expand(n)
+            for a, n in ((e_alpha, self._counts[0]),
+                         (t_alpha, self._counts[1])))
         if self.has_edges:
             xs = self._edges(xs, w, lam["edges"], e_alpha)
         if self.has_tets:
@@ -203,15 +212,18 @@ class ColouredStep:
                  volume_compliance=None, friction=None, gravity_override=None,
                  colliders_rt: Optional[Colliders] = None) -> SimState:
         """One step.  Overrides of the SolverParams fields for this step:
-        the compliances, ``friction``, ``gravity_override`` and the collider
-        poses ``colliders_rt`` (same count as the make-time set)."""
+        the compliances (each a scalar, or a per-constraint tensor in
+        public order on the step's device, as a batch of scenes with a
+        compliance each passes it), ``friction``, ``gravity_override`` and
+        the collider poses ``colliders_rt`` (same count as the make-time
+        set)."""
         p, dev = self.params, self.device
         cols = kc.runtime_colliders(self.colliders, colliders_rt, dev)
         packed = None if cols is None else kc.pack_colliders(cols, dev)
-        ec = np.float32(p.edge_compliance if edge_compliance is None
-                        else edge_compliance)
-        vc = np.float32(p.volume_compliance if volume_compliance is None
-                        else volume_compliance)
+        ec, vc = (c.to(dev, torch.float32) if isinstance(c, torch.Tensor)
+                  else np.float32(d if c is None else c)
+                  for c, d in ((edge_compliance, p.edge_compliance),
+                               (volume_compliance, p.volume_compliance)))
         # 1 - friction: in f32 for a runtime override (a traced scalar in
         # the JAX step), from the Python float otherwise
         keep = (np.float32(1.0) - np.clip(np.float32(friction), 0.0, 1.0)
@@ -224,8 +236,13 @@ class ColouredStep:
         big = sdt > np.float32(1e-12)
         inv_dt2 = np.float32(1.0) / (sdt * sdt) if big else np.float32(0.0)
         inv_dt = float(np.float32(1.0) / sdt) if big else 0.0
-        e_alpha = float(np.maximum(ec, np.float32(0.0)) * inv_dt2)
-        t_alpha = float(np.maximum(vc, np.float32(0.0)) * inv_dt2)
+        def alpha(c, fam):          # a float, or a colour-major table
+            if not isinstance(c, torch.Tensor):
+                return float(np.maximum(c, np.float32(0.0)) * inv_dt2)
+            a = c.clamp_min(0.0) * float(inv_dt2)
+            return a[self._fam[fam]["perm"]] if fam in self._fam else a
+
+        e_alpha, t_alpha = alpha(ec, "edges"), alpha(vc, "tets")
         sdt = float(sdt)
 
         w = state.inv_mass
@@ -245,15 +262,18 @@ class ColouredStep:
         if graphed:
             b = self._buf
             b["w"].copy_(w)
-            if (e_alpha, t_alpha) != self._alpha_now:
-                b["alpha"].copy_(torch.tensor([e_alpha, t_alpha],
-                                              dtype=torch.float32)
-                                 .pin_memory(), non_blocking=True)
-                self._alpha_now = (e_alpha, t_alpha)
+            # the graph reads the alpha tables: a scalar fills its table
+            # when it changes, a table is copied in every step
+            for i, a in enumerate((e_alpha, t_alpha)):
+                if isinstance(a, torch.Tensor):
+                    b["alpha"][i].copy_(a)
+                    self._alpha_now[i] = None
+                elif a != self._alpha_now[i]:
+                    b["alpha"][i].fill_(a)
+                    self._alpha_now[i] = a
 
             def solve():
-                return self._solve(b["x"], b["w"], b["lam"],
-                                   *b["alpha"].unbind())
+                return self._solve(b["x"], b["w"], b["lam"], *b["alpha"])
 
         x, v = state.x, state.v
         for _ in range(ss):

@@ -207,7 +207,7 @@ class SweepStep:
         if params.xpbd_x_dtype == "bfloat16":
             raise NotImplementedError(
                 "xpbd_x_dtype='bfloat16' is not ported yet (ROADMAP.md "
-                "queue 1 item 5)")
+                "queue 1, 'bfloat16 table')")
         if params.xpbd_x_dtype != "float32":
             raise ValueError(f"unknown xpbd_x_dtype {params.xpbd_x_dtype!r}"
                              " (float32|bfloat16)")
@@ -215,7 +215,7 @@ class SweepStep:
                                      and len(topology.surface_tris)):
             raise NotImplementedError(
                 "self / surface collision is not ported yet (ROADMAP.md "
-                "queue 1 item 9)")
+                "queue 1, 'Contact')")
         dev = self.device = resolve_device(device)
         self.params = params
         self.superblocks = bool(superblocks)

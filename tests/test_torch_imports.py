@@ -47,7 +47,17 @@ def test_scan_sees_the_whole_port():
                  "softbodysim_torch/solver/jacobi.py",
                  "softbodysim_torch/solver/jacobi_pass.py",
                  "softbodysim_torch/solver/xpbd_sweep.py",
-                 "softbodysim_torch/api/engine.py", "chip_smoke.py"):
+                 "softbodysim_torch/api/engine.py",
+                 "softbodysim_torch/api/world.py",
+                 "softbodysim_torch/api/scenes.py",
+                 "softbodysim_torch/api/dynamic.py",
+                 "softbodysim_torch/parallel/batching.py",
+                 "softbodysim_torch/parallel/groups.py",
+                 "softbodysim_torch/parallel/hetero.py",
+                 "softbodysim_torch/perf/timing.py",
+                 "softbodysim_torch/perf/convergence.py",
+                 "softbodysim_torch/io/unity_assets.py",
+                 "softbodysim_torch/io/from_jax.py", "chip_smoke.py"):
         assert must in names
     # and the scan does catch an import
     assert "jax" in set(_imported_roots(ROOT / "softbodysim_tpu"

@@ -17,6 +17,8 @@ same arithmetic, no FMA on either side); whole steps on the card against
 the CPU 1e-4 over 10 steps.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -688,3 +690,203 @@ def test_xpbd_coloured_colliders_on_card_use_collide_kernel(backend,
     for f in ("x", "edge_lambda", "tet_lambda"):
         torch.testing.assert_close(getattr(gpu.state, f).cpu(),
                                    getattr(cpu.state, f), rtol=0, atol=1e-4)
+
+
+# ---- per-body material tables on a merged two-body mesh (Scene.build_merged)
+
+def _bodies():
+    return [sbt.meshes.tet_cube(6, 5, 4, size=0.6, center=(-0.6, 0.8, 0.0)),
+            sbt.meshes.tet_ball(2, 0.3, (0.6, 0.8, 0.0))]
+
+
+def _two_bodies():
+    """The merged mesh and body 0's (edge, tet) counts."""
+    from softbodysim_torch.core.topology import merge_topologies
+
+    parts = _bodies()
+    merged, _ = merge_topologies(parts)
+    return merged, {"edges": parts[0].num_edges, "tets": parts[0].num_tets}
+
+
+def _per_body(counts, values):
+    return np.concatenate([np.full(n, v, np.float32)
+                           for n, v in zip(counts, values)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["edges", "tets"])
+def test_merged_passes_with_body_stiffness_on_card(family, cuda_device):
+    """The pass kernels on a merged mesh whose bodies have their own
+    stiffness (the per-constraint table of a mixed-stiffness merge)
+    against their plain versions: 1e-5, counts equal."""
+    topo, first = _two_bodies()
+    V = topo.num_particles
+    rng = np.random.default_rng(2)
+    xin = torch.zeros((V, 4))
+    xin[:, :3] = torch.from_numpy(
+        (topo.vertices + rng.normal(0.0, 0.01, (V, 3))).astype(np.float32))
+    xin[:, 3] = sbt.init_state(topo, inv_mass_mode="density",
+                               device="cpu").inv_mass
+    xin = xin.to(cuda_device)
+    cons, rest = ((topo.edges, topo.edge_rest) if family == "edges"
+                  else (topo.tets, topo.tet_rest_vol))
+    n0 = first[family]
+    table = _per_body((n0, len(cons) - n0), (0.9, 0.3))
+    make, fn, plain = ((kj.edge_pass_plan, kj.jacobi_edge_pass,
+                        kj.jacobi_edge_pass_plain) if family == "edges"
+                       else (kj.tet_pass_plan, kj.jacobi_tet_pass,
+                             kj.jacobi_tet_pass_plain))
+    plan = make(V, cons, rest, table, device=cuda_device,
+                vertices=topo.vertices)
+    xa, xb = torch.empty_like(xin), torch.empty_like(xin)
+    ca = torch.zeros(V, dtype=torch.int32, device=cuda_device)
+    cb = torch.zeros_like(ca)
+    launches = fn.launches
+    fn(plan, xin, xa, 1.0, 1.4, ca)
+    assert fn.launches == launches + 1
+    plain(plan, xin, xb, 1.0, 1.4, cb)
+    torch.cuda.synchronize()
+    assert not torch.equal(xa, xin)
+    torch.testing.assert_close(xa, xb, rtol=0, atol=1e-5)
+    assert torch.equal(ca, cb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["edges", "tets"])
+def test_merged_sweeps_with_body_compliance_on_card(family, cuda_device):
+    """The super-block sweeps with a per-body compliance table (the
+    per-constraint alpha of a mixed-compliance merge) against their plain
+    versions, at the tolerances above."""
+    topo, first = _two_bodies()
+    V = topo.num_particles
+    rng = np.random.default_rng(3)
+    cons, rest, lcap = ((topo.edges, topo.edge_rest, 2) if family == "edges"
+                        else (topo.tets, topo.tet_rest_vol, 3))
+    cons = cons.astype(np.int64)
+    n0 = first[family]
+    table = _per_body((n0, len(cons) - n0), (1e-4, 5e-3))
+    plan = tsp.pack_superblocks(cons, rest, layer_cap=lcap)
+    dplan = ksw.to_device(tsp.build_gpu_plan(
+        plan, cons, scheme="split", omega=1.5, compliance=table),
+        cuda_device)
+    nwin = -(-V // tsp.LANES)
+    xw = torch.zeros((nwin * tsp.LANES, 4))
+    xw[:V, :3] = torch.from_numpy(
+        (topo.vertices + rng.normal(0.0, 0.01, (V, 3))).astype(np.float32))
+    xw[:V, 3] = sbt.init_state(topo, device="cpu").inv_mass
+    xw = xw.to(cuda_device)
+    wk = ksw.w_fill(dplan, xw)
+    fn, plain = ((ksw.edge_sweep, ksw.edge_sweep_plain) if family == "edges"
+                 else (ksw.tet_sweep, ksw.tet_sweep_plain))
+    lam0 = torch.zeros(dplan.num_blocks * tsp.BLOCK, device=cuda_device)
+    xa, la, xb, lb = xw.clone(), lam0.clone(), xw.clone(), lam0.clone()
+    alpha = 14400.0                        # the tables' scale: 1 / sdt^2
+    fn(dplan, xa, la, wk, alpha, 1)
+    plain(dplan, xb, lb, wk, alpha, 1)
+    torch.cuda.synchronize()
+    assert not torch.equal(xa, xw)
+    torch.testing.assert_close(xa, xb, rtol=0, atol=1e-5)
+    torch.testing.assert_close(la, lb, rtol=0,
+                               atol=1e-5 * lb.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dialect", ["jacobi", "xpbd"])
+def test_mixed_material_merge_on_card_matches_cpu(dialect, cuda_device):
+    """Scene.build_merged of two bodies with their own stiffness (jacobi:
+    the pass kernels with edge_k / tet_k) or compliance (xpbd: the sweep
+    kernels with edge_c / tet_c) on the card against the same scene on the
+    CPU: 10 steps, 1e-4, from a deformed start (every position moved by
+    N(0, 1 cm), the same draws on both), so every constraint's table entry
+    weighs from the first step."""
+    from softbodysim_torch.api import scenes
+
+    bodies = _bodies()
+    if dialect == "jacobi":
+        params = [scenes._params(edge=0.9), scenes._params(edge=0.4, vol=0.6)]
+        kernels = ("jacobi_edge_pass", "jacobi_tet_pass_collide")
+    else:
+        base = sbt.SolverParams(substeps=2, iterations=3)
+        params = [base, base.replace(edge_compliance=5e-3,
+                                     volume_compliance=1e-4)]
+        kernels = ("edge_sweep", "tet_sweep")
+    scene = scenes.Scene(name="mixed", colliders=[], bodies=[
+        (f"b{i}", t, p, {}) for i, (t, p) in enumerate(zip(bodies, params))])
+    gpu, _ = scene.build_merged(device=cuda_device)
+    cpu, _ = scene.build_merged(device="cpu")
+    noise = torch.from_numpy(np.random.default_rng(6).normal(
+        0.0, 0.01, tuple(cpu.state.x.shape)).astype(np.float32))
+    for eng in (gpu, cpu):
+        x = eng.state.x + noise.to(eng.state.x.device)
+        eng.state = dataclasses.replace(eng.state, x=x, x_star=x.clone())
+    before = launch_counts()
+    gpu.run(10, DT)
+    after = launch_counts()
+    cpu.run(10, DT)
+    assert gpu.backend == ("pass" if dialect == "jacobi" else "sweep")
+    for k in kernels:
+        assert after[k] > before[k], k
+    torch.testing.assert_close(gpu.state.x.cpu(), cpu.state.x, rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dialect", ["jacobi", "xpbd"])
+def test_batched_step_on_card_matches_cpu(dialect, cuda_device):
+    """A batch of 4 scenes with per-scene stiffness (jacobi) or compliance
+    (xpbd, through the coloured step's CUDA graph with compliance tables)
+    and a box: the card against the CPU, 10 steps, 1e-4; the collide
+    kernel launches once per iteration for all scenes."""
+    from softbodysim_torch.parallel import BatchedEngine
+
+    topo = sbt.meshes.tet_cube(3, 3, 3, size=0.5, center=(0.0, 0.45, 0.0))
+    params = sbt.SolverParams(dialect=dialect, substeps=2, iterations=3)
+    per_scene = ((torch.tensor([0.9, 0.7, 0.5, 0.3]), torch.full((4,), 0.98))
+                 if dialect == "jacobi" else
+                 (torch.tensor([1e-4, 5e-4, 1e-3, 5e-3]), torch.zeros(4)))
+    engines = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        box = sbt.Colliders.build([BOX], device=dev)
+        before = launch_counts()
+        eng = BatchedEngine(topo, params, 4, colliders=box,
+                            randomized_stiffness=True, device=dev)
+        for _ in range(10):
+            eng.step(DT, *per_scene)
+        engines[dev.type] = (eng, launch_counts()["collide"]
+                             - before["collide"])
+    assert engines["cuda"][1] == 10 * 2 * 3
+    torch.testing.assert_close(engines["cuda"][0].state.x.cpu(),
+                               engines["cpu"][0].state.x, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_grouped_and_hetero_engines_on_card_match_cpu(cuda_device):
+    """FourBodyTest's grouped engine (one batched step per family) and a
+    heterogeneous padded batch with a box (the collide kernel once per
+    iteration for all scenes): the card against the CPU, 8 steps, 1e-4."""
+    from softbodysim_torch.api import scenes
+    from softbodysim_torch.parallel import HeteroEngine
+
+    scene = scenes.four_body_test()
+    topos = [sbt.meshes.tet_ball(1, 0.2, (0.0, 0.8, 0.0)),
+             sbt.meshes.tet_cube(3, 2, 2, 0.4, (1.0, 0.9, 0.0))]
+    params = sbt.SolverParams(dialect="jacobi", substeps=2, iterations=4)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        grouped = scene.build_grouped(device=dev)
+        het = HeteroEngine(topos, params, device=dev,
+                           colliders=sbt.Colliders.build([BOX], device=dev))
+        before = launch_counts()["collide"]
+        for _ in range(8):
+            grouped.step(DT)
+            het.step(DT)
+        out[dev.type] = (dict(grouped.positions()), het.positions(),
+                         launch_counts()["collide"] - before)
+    gpu, cpu = out["cuda"], out["cpu"]
+    # the floor box: 8 steps x 2 x 6 per family; the hetero box: 8 x 2 x 4
+    assert gpu[2] == 8 * 2 * 6 + 8 * 2 * 4
+    for name in cpu[0]:
+        np.testing.assert_allclose(gpu[0][name], cpu[0][name], rtol=0,
+                                   atol=1e-4)
+    for g, c in zip(gpu[1], cpu[1]):
+        np.testing.assert_allclose(g, c, rtol=0, atol=1e-4)

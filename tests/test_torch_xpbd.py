@@ -143,7 +143,7 @@ def test_coloured_backends_refuse_what_they_lack():
                        edge_c=np.ones(topo.num_edges, np.float32))
     with pytest.raises(ValueError):
         make_xpbd_step(topo, params, device="cpu", superblocks=False)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="queue 1, 'Contact'"):
         make_xpbd_step(topo, params.replace(self_collision=True),
                        device="cpu")
 
@@ -172,3 +172,32 @@ def test_coloured_solve_reads_alpha_tensors_bitwise(alpha):
     for fam in lam0:
         assert torch.equal(outs[0][1][fam], outs[1][1][fam])
     assert not torch.equal(outs[0][0], x)
+
+
+@pytest.mark.parametrize("alpha", [(0.0, 0.0), (3.6e-3, 1.25e-4)])
+def test_coloured_solve_reads_alpha_tables_bitwise(alpha):
+    """The coloured iteration with the compliance as uniform colour-major
+    (n,) tables, as the card's graph reads them, gives the bits of the
+    same float32-exact floats; a table that is not uniform changes the
+    result."""
+    topo = _cube(CUBES["cube3"])
+    step = make_xpbd_step(topo, sbt.SolverParams(**PARAMS), device="cpu")
+    s = sbt.init_state(topo, device="cpu")
+    rng = np.random.default_rng(5)
+    x = s.x + torch.from_numpy(rng.normal(0.0, 0.01, s.x.shape).astype(
+        np.float32))
+    floats = [float(np.float32(a)) for a in alpha]
+    counts = (topo.num_edges, topo.num_tets)
+    lam0 = {fam: torch.from_numpy(rng.normal(0.0, 1e-3, n).astype(
+        np.float32)) for fam, n in zip(("edges", "tets"), counts)}
+    uniform = [torch.full((n,), a, dtype=torch.float32)
+               for a, n in zip(floats, counts)]
+    ramp = [t * torch.linspace(0.5, 1.5, len(t)) + 1e-3 for t in uniform]
+    outs = []
+    for a in (floats, uniform, ramp):
+        lam = {fam: v.clone() for fam, v in lam0.items()}
+        outs.append((step._solve(x, s.inv_mass, lam, *a), lam))
+    assert torch.equal(outs[0][0], outs[1][0])
+    for fam in lam0:
+        assert torch.equal(outs[0][1][fam], outs[1][1][fam])
+    assert not torch.equal(outs[0][0], outs[2][0])
