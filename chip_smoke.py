@@ -95,6 +95,36 @@ A-F. The scene paths and the convergence module, after phase 10 and
       the retained bodies' x, v and lambdas array-equal across the
       rebuild.
    F. sample_scene().build_world(): 20 steps, the body resting on its box.
+G-H. Contact and the mesh pipeline, after phase F and before any profiler
+   runs:
+   G. BASELINE config #4 at the north star's size: 8 x tet_cube(23) (V
+      110,592) merged in two layers of four, 0.1 m apart, the upper layer
+      a quarter cube off in x and z; particle radius 0.02, self collision
+      (cell 0.04, cap autosized), surface collision (thickness 0.02, cell
+      autosized), friction 0.4, ground on.  Run twice: xpbd 8 x 1 'auto'
+      (-> the sweep kernels) and jacobi 2 x 6 with the in-engine tunings
+      'auto' (-> the pass kernels, the stages inside the substep's graph).
+      Each: the host plan time and the autosized caps; 40 steps with a
+      checkpoint (io/checkpoint.py) at step 30; a second run to step 30
+      equal to the checkpoint bit for bit; the checkpoint loaded into a
+      fresh Engine and stepped 10 more, equal bit for bit to the 40 steps;
+      stacked: the upper layer's mean height at least 0.1 m over the
+      lower's, and at most 10% of the upper vertices over a lower top face
+      more than 2 cm below it (the same scene with contact off must fail
+      both); three warm 20-step windows.  Then per dialect the stages'
+      device ms and device ops per call (torch.profiler) and their
+      costliest ops, their peak memory, their share of the step's device
+      time and the overflow counts at the end; and a reduced copy
+      (two tet_cube(3) bodies that collide) on each backend within 1e-4 m
+      of the CPU over 10 steps.
+   H. A closed icosphere tetrahedralized by core/tetrahedralize.py on the
+      native library (host seconds of voxelizing and snapping), round-
+      tripped through io/topology_store.py, dropped on the floor box for
+      20 steps on jacobi 'auto', each step against the CPU as phase 4's
+      ball (1e-4 m, or ten times the CPU's own gather / segment spread
+      once the landing makes it larger).
+   A {"contact": {...}} line sums up G and H (with the card's name and
+   power limit).
 11. Every kernel at north-star shapes against its plain PyTorch version
    on the card, from one predicted, perturbed state (the Jacobi ones with
    a box collider and the ground); time both.  Each Jacobi pass prints
@@ -1838,6 +1868,330 @@ def sample_world_path(sbt, device) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------------
+# Contact and the mesh pipeline (phases G-H)
+# --------------------------------------------------------------------------
+
+# BASELINE.json config #4 (soft bodies with spatial-hash self and
+# inter-body collision and friction) at the north star's particle count:
+# contact radius 0.02 (2r = 0.04, under the lattice spacing 1/23 m), the
+# self cap autosized, the surface cell autosized
+CONTACT = dict(particle_radius=0.02, self_collision=True,
+               self_collision_cell=0.04, self_collision_max_per_cell=0,
+               surface_collision=True, surface_thickness=0.02,
+               surface_collision_cell=0.0, friction=0.4)
+CONTACT_STEPS = 40
+CHECKPOINT_AT = 30
+# stacked after the drop: the upper layer's mean height stays this far over
+# the lower layer's, and of the upper vertices over a lower cube's top face
+# at most STACK_MAX_DEEP sink more than STACK_DEPTH below the nearest
+# top-face vertex (the Jacobi cubes are soft enough at 2 x 6 to flatten
+# and let a few percent through); with contact off the upper layer falls
+# through the lower one to the ground, and the same scene must fail both
+STACK_MIN_RISE = 0.1
+STACK_DEPTH = 0.02
+STACK_MAX_DEEP = 0.10
+# the reduced copy of phase G (two tet_cube(3) bodies, the upper 1 cm over
+# the lower and off its lattice) on the card against the CPU
+CONTACT_PAIR_STEPS = 10
+# phase H: the icosphere's voxel resolution (cells across its extent)
+MESH_RESOLUTION = 16
+
+
+def contact_scene(sbt) -> tuple:
+    """8 x tet_cube(23) (V 110,592) merged in two layers of four, 0.1 m
+    apart, the upper layer shifted by a quarter cube in x and z so each
+    upper cube lands across lower ones: (topology, body slices)."""
+    from softbodysim_torch.core.adjacency import combine_topologies
+
+    cubes = [sbt.meshes.tet_cube(23, 23, 23, size=1.0,
+                                 center=(cx + shift, y, cz + shift))
+             for y, shift in ((0.5, 0.0), (1.6, 0.25))
+             for cx in (-0.55, 0.55) for cz in (-0.55, 0.55)]
+    return combine_topologies(cubes)
+
+
+def stacking(topo, slices, x) -> tuple:
+    """(the upper layer's mean height over the lower layer's in m, the
+    share of the upper vertices over a lower top face (within a lattice
+    spacing of a top-face vertex, in x and z) that lie more than
+    STACK_DEPTH below the nearest one) at positions x (V, 3) on the card."""
+    ys = [float(x[s, 1].mean()) for s in slices]
+    rise = float(np.mean(ys[4:]) - np.mean(ys[:4]))
+    tops = np.concatenate([
+        s.start + np.nonzero(topo.vertices[s, 1]
+                             >= topo.vertices[s, 1].max() - 1e-4)[0]
+        for s in slices[:4]])
+    top = x[torch.as_tensor(tops, device=x.device)]
+    up = x[slices[4].start:]
+    dist, near = torch.cdist(up[:, [0, 2]], top[:, [0, 2]]).min(1)
+    depth = (top[near, 1] - up[:, 1])[dist < 1.0 / 23]
+    if not depth.numel():                     # nothing over a top face
+        return rise, 1.0
+    return rise, float((depth > STACK_DEPTH).float().mean())
+
+
+def stacked(rise: float, deep: float) -> bool:
+    return rise >= STACK_MIN_RISE and deep <= STACK_MAX_DEEP
+
+
+def same_bits(a, b, label: str) -> None:
+    for f in ("x", "v", "x_star", "inv_mass", "edge_lambda", "tet_lambda"):
+        if not torch.equal(getattr(a, f), getattr(b, f)):
+            diff = float((getattr(a, f) - getattr(b, f)).abs().max())
+            raise AssertionError(f"{label}: {f} differs (max {diff:.3e})")
+
+
+def contact_run(sbt, topo, slices, params, device, label: str) -> dict:
+    """One dialect of phase G: the Engine (host plan time, the autosized
+    caps), 40 steps with a checkpoint at step 30, a second run to step 30
+    (the same bits as the checkpoint), the checkpoint loaded into a fresh
+    Engine and stepped 10 more (the same bits as the 40 steps), then three
+    warm 20-step windows."""
+    import tempfile
+
+    from softbodysim_torch.io import checkpoint
+
+    t0 = time.perf_counter()
+    eng = sbt.Engine(topo, params, device=device)
+    plan_s = time.perf_counter() - t0
+    caps = eng._raw_step.contact.caps
+    print(f"phase G {label}: backend {eng.backend}, host plan "
+          f"{plan_s:.2f} s, caps {caps}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "contact.npz")
+        reset_counts()
+        t0 = time.perf_counter()
+        for k in range(CONTACT_STEPS):
+            eng.step(DT)
+            if k + 1 == CHECKPOINT_AT:
+                checkpoint.save_state(path, eng.state, params,
+                                      {"step": CHECKPOINT_AT})
+        eng.block()
+        counts = read_counts()
+        run_s = time.perf_counter() - t0
+        saved, meta = checkpoint.load_state(path, device=device)
+        again = sbt.Engine(topo, params, device=device)
+        for _ in range(CHECKPOINT_AT):
+            again.step(DT)
+        same_bits(again.state, saved, f"phase G {label}: a second run")
+        del again
+        resumed = sbt.Engine(topo, params, device=device)
+        resumed.state = saved
+        for _ in range(CONTACT_STEPS - meta["step"]):
+            resumed.step(DT)
+        same_bits(resumed.state, eng.state, f"phase G {label}: resume")
+        del resumed
+    pos = eng.positions()
+    rise, deep = stacking(topo, slices, eng.state.x)
+    print(f"phase G {label}: {CONTACT_STEPS} steps in {run_s:.2f} s; a "
+          f"second run equal bit for bit at step {CHECKPOINT_AT}, the "
+          f"checkpoint resumed {CONTACT_STEPS - CHECKPOINT_AT} steps equal "
+          f"bit for bit; upper layer {rise:.4f} m over the lower (at least "
+          f"{STACK_MIN_RISE}), {deep:.5f} of its vertices over a lower top "
+          f"more than {STACK_DEPTH} m under it (at most {STACK_MAX_DEEP}); "
+          f"launches {counts}", flush=True)
+    if not np.isfinite(pos).all():
+        raise AssertionError(f"phase G {label}: non-finite positions")
+    if not stacked(rise, deep):
+        raise AssertionError(f"phase G {label}: the layers interpenetrate "
+                             f"(rise {rise:.4f} m, {deep:.5f} deep)")
+    kernels = (("w_fill", "edge_sweep", "tet_sweep") if eng.backend ==
+               "sweep" else ("jacobi_edge_pass", "jacobi_tet_pass_collide"))
+    check_launched(counts, kernels, f"phase G {label}")
+    ms = timed_window(eng, 20)
+    return {"engine": eng, "backend": eng.backend, "host_plan_s": plan_s,
+            "caps": caps, "ms_per_step": ms, "rise_m": rise,
+            "deep_share": deep, "launches": counts}
+
+
+def contact_profile(eng, params, ms: float) -> dict:
+    """The contact stages of a warm phase-G Engine on its current state, in
+    the stage's own layout: device ms and device ops per call of each stage
+    (torch.profiler over 5 calls) and the five costliest device ops, the
+    stages' peak memory above what was allocated, the share of the step's
+    device time, and the overflow."""
+    st = eng._raw_step.contact
+    x, w = st.rows(eng.state.x, eng.state.inv_mass)
+    q = x if st.iso is None else x + st.iso
+    calls = max(1, params.substeps) * params.iterations
+    out = {}
+    for name, fn in (("self", lambda: st.self_fn(q, w, st.radius)),
+                     ("surface", lambda: st.surf_fn(q, w)),
+                     ("both", lambda: st(x, w))):
+        fn()
+        acts, _ = device_activity(lambda: [fn() for _ in range(5)])
+        dev_ms = sum(t for _, t in acts.values()) / 1e3 / 5
+        ops = sum(c for c, _ in acts.values()) / 5
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        by_name = collections.defaultdict(float)
+        for k, (_, t) in acts.items():
+            by_name[_short(k)] += t / 5
+        out[name] = {"device_ms_per_call": dev_ms,
+                     "device_ops_per_call": ops, "peak_mb": peak / 1e6,
+                     "top_us_per_call": dict(sorted(
+                         by_name.items(), key=lambda kv: -kv[1])[:5])}
+    prof = profile_window(eng, 2, ms)
+    both = out["both"]
+    out.update(
+        calls_per_step=calls,
+        device_ops_per_step=both["device_ops_per_call"] * calls,
+        step_device_busy_ms=prof["device_busy_ms_per_step"],
+        contact_share_of_device=both["device_ms_per_call"] * calls
+        / prof["device_busy_ms_per_step"],
+        overflow=st.overflow(eng.state.x, eng.state.inv_mass))
+    return out
+
+
+def contact_pair(sbt, device) -> dict:
+    """Phase G's reduced copy: two tet_cube(3) bodies that collide, on the
+    card against the same Engine on the CPU, each backend: max |card - CPU|
+    over 10 steps."""
+    from softbodysim_torch.core.adjacency import combine_topologies
+
+    pair, _ = combine_topologies([
+        sbt.meshes.tet_cube(3, 3, 3, size=0.3, center=(0.0, 0.15, 0.0)),
+        sbt.meshes.tet_cube(3, 3, 3, size=0.3, center=(0.037, 0.46, 0.023))])
+    out = {}
+    for dialect, backend in (("xpbd", "gather"), ("xpbd", "sweep"),
+                             ("jacobi", "gather"), ("jacobi", "segment"),
+                             ("jacobi", "pass")):
+        base = (dict(dialect="xpbd", substeps=2, iterations=3)
+                if dialect == "xpbd" else JACOBI)
+        knob = f"{dialect}_backend"
+        params = sbt.SolverParams(**{**base, **CONTACT, knob: backend})
+        card = sbt.Engine(pair, params, device=device)
+        cpu = sbt.Engine(pair, params, device="cpu")
+        err = 0.0
+        for _ in range(CONTACT_PAIR_STEPS):
+            card.step(DT)
+            cpu.step(DT)
+            err = max(err, float(np.abs(card.positions()
+                                        - cpu.positions()).max()))
+        out[f"{dialect}_{backend}"] = err
+        if not err <= ORACLE_TOL:
+            raise AssertionError(f"phase G pair {dialect} {backend}: card "
+                                 f"vs CPU {err:.3e}")
+    print(f"phase G reduced copy (2 x tet_cube(3), contact), card vs CPU "
+          f"over {CONTACT_PAIR_STEPS} steps: {out}", flush=True)
+    return out
+
+
+def contact_path(sbt, device) -> dict:
+    """Phase G: contact at the north star's size on xpbd 8 x 1 'auto'
+    (-> the sweep kernels) and jacobi 2 x 6 'auto' (-> the pass kernels):
+    checks, then the stages' profile, then the reduced copy."""
+    topo, slices = contact_scene(sbt)
+    print(f"phase G scene: 8 x tet_cube(23), V {topo.num_particles}, E "
+          f"{topo.num_edges}, T {topo.num_tets}, surface triangles "
+          f"{len(topo.surface_tris)}", flush=True)
+    dialects = {
+        "xpbd": sbt.SolverParams(dialect="xpbd", substeps=8, iterations=1,
+                                 **CONTACT),
+        "jacobi": sbt.SolverParams(**{**JACOBI, **CONTACT})}
+    runs = {label: contact_run(sbt, topo, slices, params, device, label)
+            for label, params in dialects.items()}
+    for label, params in dialects.items():
+        off = sbt.Engine(topo, params.replace(self_collision=False,
+                                              surface_collision=False),
+                         device=device)
+        off.run(CONTACT_STEPS, DT)
+        rise, deep = stacking(topo, slices, off.state.x)
+        print(f"phase G {label}, contact off: upper layer {rise:.4f} m over "
+              f"the lower after {CONTACT_STEPS} steps, {deep:.5f} deep",
+              flush=True)
+        if rise >= STACK_MIN_RISE or deep <= STACK_MAX_DEEP:
+            raise AssertionError(f"phase G {label}: the contact-off scene "
+                                 "passes a stacking check")
+        runs[label].update(rise_off_m=rise, deep_share_off=deep)
+        del off
+    for label, params in dialects.items():
+        r = runs[label]
+        r["profile"] = contact_profile(r.pop("engine"), params,
+                                       r["ms_per_step"])
+        print(f"phase G {label} contact stages: {json.dumps(r['profile'])}",
+              flush=True)
+    torch.cuda.empty_cache()
+    runs["reduced_card_vs_cpu"] = contact_pair(sbt, device)
+    return runs
+
+
+def mesh_pipeline_path(sbt, device) -> dict:
+    """Phase H: a closed icosphere tetrahedralized (native path), its
+    topology round-tripped through topology_store, dropped on the floor
+    box for 20 steps on 'auto' (-> 'gather'), each step against the same
+    Engine on the CPU at ``ball_tol``: 1e-4 m until the ball lands, then
+    ten times the CPU's own spread ('gather' against 'segment'), which the
+    landing turns from 1e-7 to centimetres (the voxel ball's flat bottom
+    layer meets the box at once, and which rows the push-out catches in a
+    substep turns on the last bits)."""
+    import tempfile
+
+    from softbodysim_torch.core import native
+    from softbodysim_torch.core import tetrahedralize as tet
+    from softbodysim_torch.io import topology_store
+
+    if native.get_lib() is None:
+        raise AssertionError("phase H: the native library did not build")
+    v, f = sbt.meshes.icosphere(3)
+    v = (v * 0.3 + np.array([0.0, 0.55, 0.0])).astype(np.float32)
+    t0 = time.perf_counter()
+    verts, tets = tet.tetrahedralize(v, f, resolution=MESH_RESOLUTION)
+    vox_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    snapped = tet.snap_to_surface(verts, tets, v, f)
+    snap_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    topo = tet.topology_from_mesh(v, f, resolution=MESH_RESOLUTION)
+    total_s = time.perf_counter() - t0
+    if not np.array_equal(topo.vertices, snapped):
+        raise AssertionError("phase H: the pipeline's vertices differ from "
+                             "its steps'")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ball.tet.npz")
+        topology_store.save_topology(path, topo)
+        back = topology_store.load_topology(path)
+    for k in ("vertices", "edges", "tets", "surface_tris", "edge_rest",
+              "tet_rest_vol"):
+        if not np.array_equal(getattr(topo, k), getattr(back, k)):
+            raise AssertionError(f"phase H: {k} changed in the round trip")
+    params = sbt.SolverParams(**JACOBI)
+    reset_counts()
+    card = sbt.Engine(back, params, colliders=floor_box(sbt, device),
+                      device=device)
+    refs = [sbt.Engine(back, params.replace(jacobi_backend=b),
+                       colliders=floor_box(sbt, "cpu"), device="cpu")
+            for b in ("gather", "segment")]
+    rows = []
+    for n in range(1, 21):
+        pos = card.run(1, DT).positions()
+        want, other = (e.run(1, DT).positions() for e in refs)
+        spread = float(np.abs(want - other).max())
+        rows.append(dict(step=n, card_vs_cpu=float(np.abs(pos - want).max()),
+                         gather_vs_segment=spread, tol=ball_tol(spread)))
+    counts = read_counts()
+    min_y = float(card.positions()[:, 1].min())
+    out = {"V": back.num_particles, "T": back.num_tets,
+           "voxelize_s": vox_s, "snap_s": snap_s, "pipeline_s": total_s,
+           "backend": card.backend, "min_y": min_y, "per_step": rows}
+    print(f"phase H mesh pipeline (icosphere(3) r 0.3, resolution "
+          f"{MESH_RESOLUTION}, native voxelizer): {json.dumps(out)}; "
+          f"launches {counts}", flush=True)
+    for r in rows:
+        if not r["card_vs_cpu"] <= r["tol"]:
+            raise AssertionError(f"phase H: card and CPU disagree: {r}")
+    if not min_y < FLOOR_BOX_TOP + 0.05:
+        raise AssertionError(f"phase H: the ball did not reach the box "
+                             f"({min_y})")
+    check_launched(counts, ("collide",), "phase H")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -1921,6 +2275,11 @@ def main() -> int:
         "batched_128x_jacobi_ms_per_step": bd_ms,
         "batched_128x_jacobi_proj_per_sec": bd_proj, "card": card}}),
         flush=True)
+    # contact and the mesh pipeline, timed before any profiler runs
+    contact = contact_path(sbt, device)
+    contact["mesh_pipeline"] = mesh_pipeline_path(sbt, device)
+    contact["card"] = card
+    print(json.dumps({"contact": contact}), flush=True)
 
     kres = compare_sweep_kernels(sbt, ksw, topo, device)
     kres.update(compare_legacy_kernels(sbt, ksw, topo, device))

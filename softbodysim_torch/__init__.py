@@ -20,6 +20,13 @@ the fused collide kernel::
                      colliders=sbt.Colliders.build(
                          [sbt.Colliders.box((0, 0.1, 0), (1.5, 0.1, 1.5))]))
 
+Contact on every step backend: ``SolverParams(self_collision=True,
+surface_collision=True)`` (spatial-hash particle contact, vertex-triangle
+surface contact; ``solver/contact.py``).  IO (``io``: checkpoints with
+exact resume, OBJ / rollout export, topology files) and the voxel
+tetrahedralizer (``core/tetrahedralize.py``) read and write the JAX
+package's formats.
+
 Multi-body scenes: ``World`` (one Engine per body), ``Scene`` and its
 presets (``api/scenes.py``: per-body, grouped, merged into one mesh, or
 partitioned into the fewest merged programs), ``DynamicMergedWorld``

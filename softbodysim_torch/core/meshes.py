@@ -1,6 +1,7 @@
 """Procedural simulation meshes (NumPy; same generators as
 ``softbodysim_tpu/core/meshes.py``, so topologies compare array-equal):
-tet cubes and balls, and an edges-only cloth patch."""
+tet cubes and balls, and an edges-only cloth patch; and a minimal OBJ
+reader."""
 
 from __future__ import annotations
 
@@ -142,3 +143,19 @@ def cloth_patch(nx: int = 64, ny: int = 64, size: float = 1.0,
                          np.int64)
               if pinned_corners else np.zeros((0,), np.int64))
     return topo, pinned
+
+
+def load_obj(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Minimal OBJ loader: vertices + triangulated faces (fan)."""
+    verts, faces = [], []
+    with open(path, "r", encoding="utf-8", errors="replace") as f:
+        for line in f:
+            if line.startswith("v "):
+                parts = line.split()
+                verts.append([float(parts[1]), float(parts[2]),
+                              float(parts[3])])
+            elif line.startswith("f "):
+                idx = [int(tok.split("/")[0]) - 1 for tok in line.split()[1:]]
+                for k in range(1, len(idx) - 1):
+                    faces.append([idx[0], idx[k], idx[k + 1]])
+    return np.asarray(verts, np.float32), np.asarray(faces, np.int64)

@@ -92,6 +92,18 @@ def get_lib() -> Optional[ctypes.CDLL]:
 
     lib.st_permute_rows.restype = None
     lib.st_permute_rows.argtypes = [voidp, voidp, i64p, i64, i64]
+
+    lib.st_voxelize.restype = voidp
+    lib.st_voxelize.argtypes = [f32p, i64, i32p, i64, ctypes.c_float]
+    for name in ("st_vox_num_verts", "st_vox_num_tets"):
+        getattr(lib, name).restype = i64
+        getattr(lib, name).argtypes = [voidp]
+    lib.st_vox_get_verts.restype = None
+    lib.st_vox_get_verts.argtypes = [voidp, f32p]
+    lib.st_vox_get_tets.restype = None
+    lib.st_vox_get_tets.argtypes = [voidp, i32p]
+    lib.st_vox_free.restype = None
+    lib.st_vox_free.argtypes = [voidp]
     return lib
 
 
@@ -190,3 +202,29 @@ def native_pack_super(cons: np.ndarray, slots_cap: int, layer_cap: int,
     finally:
         lib.st_pack_free(h)
     return nsup, dmax, slots, rel, inv, perm, scale
+
+
+def native_voxelize(vertices: np.ndarray, triangles: np.ndarray,
+                    cell: float):
+    """The voxel tetrahedralizer (``core/tetrahedralize.py``'s
+    ``voxelize_numpy``, same output): (verts (V, 3) f32, tets (T, 4) i32),
+    or None without the library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    v = np.ascontiguousarray(vertices, np.float32).reshape(-1, 3)
+    t = np.ascontiguousarray(triangles, np.int32).reshape(-1, 3)
+    h = lib.st_voxelize(v.reshape(-1), len(v), t.reshape(-1), len(t),
+                        ctypes.c_float(cell))
+    try:
+        nv = lib.st_vox_num_verts(h)
+        nt = lib.st_vox_num_tets(h)
+        verts = np.empty((nv, 3), np.float32)
+        tets = np.empty((nt, 4), np.int32)
+        if nv:
+            lib.st_vox_get_verts(h, verts.reshape(-1))
+        if nt:
+            lib.st_vox_get_tets(h, tets.reshape(-1))
+        return verts, tets
+    finally:
+        lib.st_vox_free(h)

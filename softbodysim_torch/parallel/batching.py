@@ -8,7 +8,8 @@ port's CUDA ops and the coloured step's CUDA graphs do not go through
 (``core/topology.py::merge_topologies``): the union's colour c holds every
 copy's colour c, no constraint crosses copies, and each copy's physics is
 its solo step's.  Every op and kernel of the step (the collide kernel
-included) launches once for all B scenes.
+included) launches once for all B scenes.  The contact stages hash each
+copy alone (``copies``, ``solver/spatial.py``): copies never touch.
 
 The backend is resolved on the single scene, as the JAX package resolves
 it (the union of 128 copies would cross the kernel threshold): 'gather' or
@@ -114,8 +115,10 @@ class BatchedStep:
         batch = int(state.x.shape[0])
         if batch != self._batch:      # the step of `batch` disjoint copies
             union, _ = merge_topologies([self.topology] * batch)
+            # each copy hashed alone by the contact stages, as each
+            # vmapped scene is
             self._union = make_step(union, self.params, self.colliders,
-                                    device=self.device)
+                                    device=self.device, copies=batch)
             self._batch = batch
         kw = {}
         if self.randomized:

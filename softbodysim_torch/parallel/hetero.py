@@ -9,7 +9,9 @@ padded particles pinned (w = 0) at the origin, as
 vmaps one scene's step over those arrays, the port offsets each scene's
 indices into one flat table of B * Vmax rows, so each op of the step runs
 once for all scenes; the collide stage is the collide wrapper on that
-table (one kernel launch on the card).
+table (one kernel launch on the card).  Like the JAX package's hetero
+step, this step has no contact stage: ``self_collision`` and
+``surface_collision`` are not read.
 """
 
 from __future__ import annotations

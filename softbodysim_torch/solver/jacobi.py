@@ -17,7 +17,11 @@ The segment and gather backends are plain tensor code on either device;
 their collide stage goes through the fused collide wrapper
 (``kernels/collide.py``), which launches the kernel on a CUDA device and
 runs its plain version on the CPU, with a body transform too (the stage
-runs in world space).  ``use_pallas='off'`` is refused on a CUDA device.
+runs in world space), then, with ``self_collision`` / ``surface_collision``
+on, the contact stages (``solver/contact.py``), in world space too: under
+a body transform the positions go to world space, through the ground,
+the colliders and the contact stages, and back (the JAX package's
+``solve_collisions``).  ``use_pallas='off'`` is refused on a CUDA device.
 The per-constraint math lives beside the pass kernels' plain versions
 (``kernels/jacobi.py``).  Tensors are new per operation (no in-place
 updates), as in the JAX package.
@@ -37,6 +41,7 @@ from ..kernels.jacobi import (EPS_LEN2, EPS_SQRT, apply_delta,
                               edge_jacobi_deltas, tet_jacobi_deltas,
                               tet_lambda)
 from .accel import chebyshev_loop
+from .contact import make_contact_stage
 
 
 def edge_gather_deltas(x_pred, inv_mass, other, rest_p, mask, stiffness,
@@ -92,12 +97,14 @@ class JacobiStep:
     simulated in local space (SoftBodySolver.cs:224-226): collisions run in
     world space and gravity turns into the local frame.  edge_k / tet_k:
     optional per-constraint stiffness (public order); the step-time
-    stiffness scalars then multiply them (default 1.0)."""
+    stiffness scalars then multiply them (default 1.0).  copies: the
+    topology is that many equal disjoint copies (a batch as one union),
+    each hashed alone by the contact stages."""
 
     def __init__(self, topology, params: SolverParams, backend: str,
                  colliders: Optional[Colliders] = None, *, device=None,
                  local_to_world=None, world_to_local=None, edge_k=None,
-                 tet_k=None):
+                 tet_k=None, copies: int = 1):
         if backend not in ("segment", "gather"):
             raise ValueError(f"unknown jacobi_backend {backend!r} "
                              "(segment|gather|pass)")
@@ -167,6 +174,8 @@ class JacobiStep:
         self.colliders = None if colliders is None else colliders.to(dev)
         self.do_collide = params.ground_enabled or (
             colliders is not None and colliders.count > 0)
+        self.contact = make_contact_stage(topology, params, device=dev,
+                                          copies=copies)
 
     # ---- stages -----------------------------------------------------------
 
@@ -205,13 +214,17 @@ class JacobiStep:
 
     def _collide(self, x, w, packed, l2w, w2l):
         """The ground and the colliders in world space through the fused
-        collide wrapper, which moves free rows only."""
+        collide wrapper, then the contact stages; each moves free rows
+        only."""
         pw = x if l2w is None else x @ l2w[:3, :3].T + l2w[:3, 3]
-        xw = kc.collide(torch.cat([pw, w[:, None]], 1).contiguous(), packed,
-                        self.ground)
+        if self.do_collide:
+            pw = kc.collide(torch.cat([pw, w[:, None]], 1).contiguous(),
+                            packed, self.ground)[:, :3]
+        if self.contact is not None:
+            pw = self.contact(pw, w)
         if w2l is None:
-            return xw[:, :3]
-        pl = xw[:, :3] @ w2l[:3, :3].T + w2l[:3, 3]
+            return pw
+        pl = pw @ w2l[:3, :3].T + w2l[:3, 3]
         return torch.where((w != 0.0)[:, None], pl, x)
 
     # ---- stepping ---------------------------------------------------------
@@ -261,7 +274,7 @@ class JacobiStep:
                 x = apply_delta(x, w, *self._edges(x, w, k_edge), omega)
             if self.has_tets:
                 x = apply_delta(x, w, *self._tets(x, w, k_vol), omega)
-            if self.do_collide:
+            if self.do_collide or self.contact is not None:
                 x = self._collide(x, w, packed, l2w, w2l)
             return x
 
@@ -287,16 +300,14 @@ class JacobiStep:
 def make_jacobi_step(topology, params: SolverParams,
                      colliders: Optional[Colliders] = None,
                      local_to_world=None, world_to_local=None,
-                     edge_k=None, tet_k=None, *, device=None):
+                     edge_k=None, tet_k=None, *, device=None,
+                     copies: int = 1):
     """Build ``step(state, dt) -> state`` for the resolved jacobi backend
-    on ``device`` (default: the card)."""
+    on ``device`` (default: the card).  copies: the topology is that many
+    disjoint copies, each hashed alone by the contact stages ('segment' /
+    'gather' only)."""
     from .select import resolve_with_tiles
 
-    if params.self_collision or (params.surface_collision
-                                 and len(topology.surface_tris)):
-        raise NotImplementedError(
-            "self / surface collision is not ported yet (ROADMAP.md queue 1, "
-            "'Contact')")
     backend, tiles = resolve_with_tiles(
         topology, params, device=device, local_to_world=local_to_world,
         num_colliders=0 if colliders is None else colliders.count)
@@ -305,6 +316,9 @@ def make_jacobi_step(topology, params: SolverParams,
             raise ValueError(
                 "jacobi_backend='pass' does not support local-space "
                 "transforms -- use 'gather' (or 'auto', which picks it)")
+        if copies != 1:
+            raise ValueError("copies > 1 (a batch as one union) requires "
+                             "jacobi_backend 'gather' or 'segment'")
         from .jacobi_pass import JacobiPassStep
 
         return JacobiPassStep(topology, params, colliders, device=device,
@@ -312,4 +326,4 @@ def make_jacobi_step(topology, params: SolverParams,
     return JacobiStep(topology, params, backend, colliders, device=device,
                       local_to_world=local_to_world,
                       world_to_local=world_to_local, edge_k=edge_k,
-                      tet_k=tet_k)
+                      tet_k=tet_k, copies=copies)

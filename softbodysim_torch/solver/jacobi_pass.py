@@ -15,9 +15,13 @@ tets -- as that pass's collide variant (``kernels/jacobi.py::
 jacobi_tet_pass_collide``): each row the pass writes is pushed out before
 its store, so the stage costs no launch and no pass over the table of its
 own.  The JAX package's Pallas backend ran this stage as XLA ops after
-both passes (``jacobi_pallas.py:187-203``); the Chebyshev blend still
-follows it.  Body transforms and self / surface collision are not
-supported here (``make_jacobi_step`` routes transforms to 'gather').
+both passes (``jacobi_pallas.py:187-203``).  The contact stages
+(``solver/contact.py``: self, then surface collision) follow the last
+pass, inside the substep's graph, and the Chebyshev blend follows them.
+This path is in public vertex order with no dead rows, so the contact
+cap and table sizes are the JAX XLA jacobi step's, not ``jacobi_pallas``'s
+(whose padded layout parks dead lanes).  Body transforms are not
+supported here (``make_jacobi_step`` routes them to 'gather').
 
 On a CUDA device one substep -- predict, the iterations' passes and
 Chebyshev blends, commit -- is captured once as a CUDA graph
@@ -54,6 +58,7 @@ from ..kernels import collide as kc
 from ..kernels import jacobi as kj
 from ..kernels import jacobi_plan
 from .accel import chebyshev_loop
+from .contact import make_contact_stage
 from .graphs import GraphCache
 
 
@@ -100,6 +105,7 @@ class JacobiPassStep:
         self.ground = kc.make_ground(params)
         self.do_collide = params.ground_enabled or (
             colliders is not None and colliders.count > 0)
+        self.contact = make_contact_stage(topology, params, device=dev)
         self._gravity = torch.tensor(params.gravity, dtype=torch.float32,
                                      device=dev)
         # on the card, the graphs' static tables: the two pass tables, the
@@ -176,6 +182,8 @@ class JacobiPassStep:
                 x, y = y, x
             if self.do_collide and not passes:
                 kc.collide(x, packed, self.ground)
+            if self.contact is not None:
+                x[:, :3] = self.contact(x[:, :3], x[:, 3])
             return x
 
         def set_rows(x, rows):

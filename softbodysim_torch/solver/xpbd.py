@@ -25,8 +25,10 @@ Every backend
 applies colliders (world space, particle radius 0) after the ground clamp
 in each iteration; on a CUDA device that stage is the fused collide
 kernel (``kernels/collide.py``), launched outside the graph, on the CPU its
-plain version.  Self and surface collision are not ported (ROADMAP.md
-queue 1, 'Contact').
+plain version.  Then, with ``self_collision`` / ``surface_collision`` on,
+the contact stages (``solver/contact.py``); on the card they run inside
+the iteration's graph, or in a graph of their own after the collide
+kernel when the step has colliders.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from ..collide.primitives import Colliders, cross3, dot3
 from ..core.state import SimState, SolverParams, f32, resolve_device
 from ..kernels import collide as kc
 from ..kernels.sweep import EPS_LEN, EPS_WSUM, SIXTH
+from .contact import make_contact_stage
 from .graphs import GraphCache
 from .select import resolve_backend
 
@@ -100,17 +103,17 @@ def _vertex_slot_map(num_vertices, rows, arity):
 
 class ColouredStep:
     """``step(state, dt, ...) -> state`` on the coloured Gauss-Seidel
-    backend, lambdas in public order at the step boundary."""
+    backend, lambdas in public order at the step boundary.
+
+    copies: the topology is that many equal disjoint copies of one scene
+    (a batch stepped as one union); each copy is hashed alone by the
+    contact stages."""
 
     backend = "gather"
 
     def __init__(self, topology, params: SolverParams,
-                 colliders: Optional[Colliders] = None, *, device=None):
-        if params.self_collision or (params.surface_collision
-                                     and len(topology.surface_tris)):
-            raise NotImplementedError(
-                "self / surface collision is not ported yet (ROADMAP.md "
-                "queue 1, 'Contact')")
+                 colliders: Optional[Colliders] = None, *, device=None,
+                 copies: int = 1):
         dev = self.device = resolve_device(device)
         self.params = params
         self.has_edges = topology.num_edges > 0
@@ -120,7 +123,11 @@ class ColouredStep:
         self._gravity = torch.tensor(params.gravity, dtype=torch.float32,
                                      device=dev)
         V = topology.num_particles
-        self._graphs = GraphCache(dev, kept=1)   # one iteration
+        self.contact = make_contact_stage(topology, params, device=dev,
+                                          copies=copies)
+        # on the card: one iteration, and the contact stages' own graph
+        # after the collide kernel when there are colliders
+        self._graphs = GraphCache(dev, kept=2)
 
         def i64(a):
             return torch.as_tensor(np.asarray(a, np.int64)).to(dev)
@@ -273,7 +280,13 @@ class ColouredStep:
                     self._alpha_now[i] = a
 
             def solve():
-                return self._solve(b["x"], b["w"], b["lam"], *b["alpha"])
+                xs = self._solve(b["x"], b["w"], b["lam"], *b["alpha"])
+                if self.contact is not None and packed is None:
+                    xs = self.contact(xs, b["w"])
+                return xs
+
+            def contact():
+                return self.contact(b["x"], b["w"])
 
         x, v = state.x, state.v
         for _ in range(ss):
@@ -289,6 +302,11 @@ class ColouredStep:
                 if packed is not None:
                     xw = torch.cat([xs, w[:, None]], 1).contiguous()
                     xs = kc.collide(xw, packed, kc.XPBD_GROUND)[:, :3]
+                    if graphed and self.contact is not None:
+                        b["x"].copy_(xs)
+                        xs = self._graphs.run("contact", contact)
+                if not graphed and self.contact is not None:
+                    xs = self.contact(xs, w)
             # commit (Sim.cpp:197-222)
             vel = (xs - x) * inv_dt
             if p.ground_enabled:
@@ -312,13 +330,19 @@ class ColouredStep:
 
 
 def make_xpbd_step(topology, params, colliders=None, *, device=None,
-                   superblocks: bool = True, edge_c=None, tet_c=None):
+                   superblocks: bool = True, edge_c=None, tet_c=None,
+                   copies: int = 1):
     """Build ``step(state, dt) -> state`` for the resolved backend.
 
     superblocks: the sweep backend's block width (1024-wide super-blocks,
     or the legacy 128-wide blocks when False).  edge_c / tet_c: optional
-    per-constraint compliance (public order), sweep backend only."""
+    per-constraint compliance (public order), sweep backend only.
+    copies: the topology is that many disjoint copies, each hashed alone
+    by the contact stages (coloured backend only)."""
     backend = resolve_backend(topology, params, device=device)
+    if backend == "sweep" and copies != 1:
+        raise ValueError("copies > 1 (a batch as one union) requires the "
+                         "coloured backend")
     if backend == "sweep":
         from .xpbd_sweep import SweepStep
 
@@ -334,4 +358,5 @@ def make_xpbd_step(topology, params, colliders=None, *, device=None,
     if not superblocks:
         raise ValueError("superblocks=False selects the legacy sweep "
                          "kernels: it requires xpbd_backend='sweep'")
-    return ColouredStep(topology, params, colliders, device=device)
+    return ColouredStep(topology, params, colliders, device=device,
+                        copies=copies)

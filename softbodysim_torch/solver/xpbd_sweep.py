@@ -3,9 +3,9 @@ path, at either block width.
 
 The counterpart of ``softbodysim_tpu/solver/xpbd_pallas.py`` (flat path):
 the same physics contract (XPBD compliance, lambda accumulated across the
-whole run, ground clamp and then the colliders inside iterations, friction
-at commit), the same host plans, the same block order and block scheme, on
-the CUDA kernels of ``kernels/sweep.py``.  ``superblocks=True`` (default)
+whole run, ground clamp, the colliders and the contact stages inside
+iterations, friction at commit), the same host plans, the same block order
+and block scheme, on the CUDA kernels of ``kernels/sweep.py``.  ``superblocks=True`` (default)
 packs 1024-wide super-blocks and runs the w-fill and super-block sweeps;
 ``superblocks=False`` packs the legacy 128-wide blocks and runs the legacy
 sweeps (scale scheme only).  No segmentation: the particle table lives in
@@ -35,6 +35,7 @@ from ..io import plan_store
 from ..kernels import collide as kc
 from ..kernels import sweep as sw
 from ..kernels import sweep_plan as sp
+from .contact import make_contact_stage
 
 LANES = sp.LANES
 
@@ -211,11 +212,6 @@ class SweepStep:
         if params.xpbd_x_dtype != "float32":
             raise ValueError(f"unknown xpbd_x_dtype {params.xpbd_x_dtype!r}"
                              " (float32|bfloat16)")
-        if params.self_collision or (params.surface_collision
-                                     and len(topology.surface_tris)):
-            raise NotImplementedError(
-                "self / surface collision is not ported yet (ROADMAP.md "
-                "queue 1, 'Contact')")
         dev = self.device = resolve_device(device)
         self.params = params
         self.superblocks = bool(superblocks)
@@ -246,6 +242,10 @@ class SweepStep:
                              if p is not None}
         self._perm = torch.as_tensor(perm, dtype=torch.int64).to(dev)
         self._old2new = torch.as_tensor(old2new, dtype=torch.int64).to(dev)
+        # self / surface collision on the row layout: dead rows parked,
+        # triangle corners remapped (solver/contact.py)
+        self.contact = make_contact_stage(topology, params, device=dev,
+                                          perm=perm, old2new=old2new)
         self._pos_of = {k: torch.as_tensor(p.pos_of).to(dev)
                         for k, p in self.gpu_plans.items() if p is not None}
         self._gravity = torch.tensor(params.gravity, dtype=torch.float32,
@@ -368,6 +368,8 @@ class SweepStep:
                 xw[:, 1] = torch.where(free[:, 0], y.clamp_min(ground_y), y)
             if packed is not None:        # free rows only; dead slots w = 0
                 kc.collide(xw, packed, kc.XPBD_GROUND)
+            if self.contact is not None:  # self, then surface collision
+                xw[:, :3] = self.contact(xw[:, :3], xw[:, 3])
         # commit: velocity update + ground friction
         xs = xw[:, :3]
         vel = (xs - xp) * inv_dt

@@ -179,8 +179,10 @@ def test_cuda_without_card_raises(monkeypatch):
 def test_unported_features_raise(case):
     """What is not ported raises NotImplementedError pointing at ROADMAP.md.
     Cases ported since ("colliders" on the sweep backend, the coloured
-    "gather" backend, "auto" on a small scene) now step; a runtime collider
-    set without a make-time template ("colliders_rt") is refused."""
+    "gather" backend, "auto" on a small scene, the "jacobi" dialect with
+    self collision and "self_collision" on the sweep backend) now step; a
+    runtime collider set without a make-time template ("colliders_rt") is
+    refused."""
     topo = _topo()
     kw = {}
     params = _sweep_params()
@@ -193,16 +195,21 @@ def test_unported_features_raise(case):
         params = params.replace(xpbd_backend="gather")
     elif case == "auto_small":
         params = params.replace(xpbd_backend="auto")
-    elif case == "jacobi":            # ported; its self collision is not
+    elif case == "jacobi":            # with self collision
         params = params.replace(dialect="jacobi", self_collision=True)
     elif case == "mesh":
         kw["mesh"] = object()
     elif case == "self_collision":
         params = params.replace(self_collision=True)
-    if case in ("colliders", "gather", "auto_small"):
+    if case in ("colliders", "gather", "auto_small", "jacobi",
+                "self_collision"):
         eng = sbt.Engine(topo, params, device="cpu", **kw).run(2, DT)
         assert np.isfinite(eng.positions()).all()
-        assert eng.backend == ("sweep" if case == "colliders" else "gather")
+        assert eng.backend == ("sweep" if case in ("colliders",
+                                                   "self_collision")
+                               else "gather")
+        if case in ("jacobi", "self_collision"):
+            assert eng._raw_step.contact.self_fn is not None
         return
     if case == "colliders_rt":
         eng = sbt.Engine(topo, params, device="cpu")

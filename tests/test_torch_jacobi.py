@@ -578,9 +578,18 @@ def test_jacobi_rejects(case, monkeypatch):
                               device="cuda")
         return
     if case in ("self_collision", "surface_collision"):
+        # ported: both backends build the stage and step; the stage moves
+        # the cube (a radius over the lattice spacing, or a thickness that
+        # reaches across the cube's faces)
+        kw = ({case: True, "particle_radius": 0.2,
+               "self_collision_cell": 0.4} if case == "self_collision"
+              else {case: True, "surface_thickness": 0.3})
         for backend in ("gather", "pass"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                _engine(topo, backend, params={case: True})
+            eng = _engine(topo, backend, params=kw).run(2, DT)
+            off = _engine(topo, backend).run(2, DT)
+            assert eng._raw_step.contact is not None
+            assert np.isfinite(eng.positions()).all()
+            assert np.abs(eng.positions() - off.positions()).max() > 1e-3
         return
     if case == "use_pallas":
         with pytest.raises(ValueError):

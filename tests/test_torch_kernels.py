@@ -14,7 +14,10 @@ plan's order, index_add_ in atomic order; the Jacobi kernels round as the
 TPU kernels, the plain versions as the segment formulation), lambdas 1e-5
 relative to the largest |lambda|, Jacobi counts equal; collide 1e-6 (the
 same arithmetic, no FMA on either side); whole steps on the card against
-the CPU 1e-4 over 10 steps.
+the CPU 1e-4 over 10 steps.  The contact stages give the same bits on
+every call (their scatter sums integers) and match the CPU within 1e-6 m;
+steps with contact on match the CPU within 1e-4 m over 10 steps and a
+second card run bit for bit.
 """
 
 import dataclasses
@@ -890,3 +893,73 @@ def test_grouped_and_hetero_engines_on_card_match_cpu(cuda_device):
                                    atol=1e-4)
     for g, c in zip(gpu[1], cpu[1]):
         np.testing.assert_allclose(g, c, rtol=0, atol=1e-4)
+
+
+def _contact_pair():
+    from softbodysim_torch.core.adjacency import combine_topologies
+
+    return combine_topologies([
+        sbt.meshes.tet_cube(3, 3, 3, size=0.3, center=(0.0, 0.15, 0.0)),
+        sbt.meshes.tet_cube(3, 3, 3, size=0.3,
+                            center=(0.037, 0.46, 0.023))])[0]
+
+
+_CONTACT = dict(particle_radius=0.02, self_collision=True,
+                self_collision_cell=0.05, self_collision_max_per_cell=0,
+                surface_collision=True, surface_thickness=0.02)
+
+
+@pytest.mark.cuda
+def test_contact_stage_same_bits_on_card(cuda_device):
+    """The contact stages on the card give the same bits on every call
+    (the surface stage's corner reactions are summed as integers), and
+    agree with the CPU within 1e-6 m."""
+    from softbodysim_torch.solver.contact import make_contact_stage
+
+    topo = _contact_pair()
+    params = sbt.SolverParams(**_CONTACT)
+    rng = np.random.default_rng(1)
+    x = (topo.vertices + rng.normal(0.0, 0.02, topo.vertices.shape)).astype(
+        np.float32)
+    w = sbt.init_state(topo, device="cpu").inv_mass
+    cpu = make_contact_stage(topo, params, device="cpu")(
+        torch.from_numpy(x), w)
+    st = make_contact_stage(topo, params, device=cuda_device)
+    xc, wc = torch.from_numpy(x).to(cuda_device), w.to(cuda_device)
+    first = st(xc, wc)
+    for _ in range(10):
+        assert torch.equal(st(xc, wc), first)
+    assert (cpu - torch.from_numpy(x)).abs().max() > 1e-3
+    torch.testing.assert_close(first.cpu(), cpu, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dialect,backend", [
+    ("xpbd", "gather"), ("xpbd", "sweep"), ("jacobi", "gather"),
+    ("jacobi", "segment"), ("jacobi", "pass")])
+def test_contact_steps_on_card_match_cpu(dialect, backend, cuda_device):
+    """Two bodies that collide, contact on, each backend (the coloured and
+    pass steps graphed on the card): 10 steps within 1e-4 m of the CPU, and
+    a second card run equal bit for bit ('segment' sums its constraint
+    deltas with index_add_, float atomics on the card, so its two runs are
+    held to the same 1e-4 m on positions instead)."""
+    topo = _contact_pair()
+    base = (dict(dialect="xpbd", substeps=2, iterations=3)
+            if dialect == "xpbd" else
+            dict(dialect="jacobi", substeps=2, iterations=4))
+    params = sbt.SolverParams(**base, **_CONTACT,
+                              **{f"{dialect}_backend": backend})
+    a, b = (sbt.Engine(topo, params, device=cuda_device) for _ in range(2))
+    cpu = sbt.Engine(topo, params, device="cpu")
+    for _ in range(10):
+        a.step(DT)
+        b.step(DT)
+        cpu.step(DT)
+    np.testing.assert_allclose(a.positions(), cpu.positions(), rtol=0,
+                               atol=1e-4)
+    if backend == "segment":
+        np.testing.assert_allclose(a.positions(), b.positions(), rtol=0,
+                                   atol=1e-4)
+        return
+    for f in ("x", "v", "edge_lambda", "tet_lambda"):
+        assert torch.equal(getattr(a.state, f), getattr(b.state, f)), f

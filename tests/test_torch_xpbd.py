@@ -143,9 +143,16 @@ def test_coloured_backends_refuse_what_they_lack():
                        edge_c=np.ones(topo.num_edges, np.float32))
     with pytest.raises(ValueError):
         make_xpbd_step(topo, params, device="cpu", superblocks=False)
-    with pytest.raises(NotImplementedError, match="queue 1, 'Contact'"):
-        make_xpbd_step(topo, params.replace(self_collision=True),
-                       device="cpu")
+    # self collision is ported: the step builds and its stage fires (a
+    # radius over the lattice spacing pushes neighbours apart)
+    step = make_xpbd_step(topo, params.replace(
+        self_collision=True, particle_radius=0.2, self_collision_cell=0.4),
+        device="cpu")
+    plain = make_xpbd_step(topo, params, device="cpu")
+    s = sbt.init_state(topo, device="cpu")
+    assert step.contact.self_fn is not None and plain.contact is None
+    assert (step(s, 1.0 / 60.0).x - plain(s, 1.0 / 60.0).x).abs().max() \
+        > 1e-3
 
 
 @pytest.mark.parametrize("alpha", [(0.0, 0.0), (3.6e-3, 1.25e-4)])
