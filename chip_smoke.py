@@ -125,6 +125,37 @@ G-H. Contact and the mesh pipeline, after phase F and before any profiler
       once the landing makes it larger).
    A {"contact": {...}} line sums up G and H (with the card's name and
    power limit).
+I-J. Serving, the CLI and the render layer, after phase H and before any
+   profiler runs:
+   I. A PBD1 client sends INIT for the north star (WireParams(substeps=8,
+      iterations=1): bench.py's north star; ~14.8 MB) to a PBDServer on
+      port 0 in a background thread on the card, then 20 STEPs: each reply
+      bit for bit an Engine built the same way in the process and stepped
+      beside it; the sweep kernels launched; the INIT-to-first-reply
+      seconds (the server's make time) and the ms per round trip beside
+      phase 3's ms/step; that Engine's host dispatch per step beside its
+      device time (the dispatch must not wait for the device).  Then with
+      client work of one round trip per frame, 20 timed frames lock-step
+      and 20 pipelined: pipelined reply k is lock-step reply k-1 bit for
+      bit, and pipelined frames/s at least 1.3x lock-step.  Two concurrent
+      north-star clients on a multi-session server (each reply stream bit
+      for bit its solo run, no sweep timeout; the aggregate frames/s beside
+      one session's), a second north-star INIT while a session steps on
+      the same server (the running session's worst frame gap during the
+      INIT beside its median gap before it: the INIT's host plans are
+      built outside the device lock), two concurrent tet_cube(6) clients
+      whose first STEPs
+      (the coloured step's captures) are released together (each bit for
+      bit its solo run), the native comm loop (NativePBDServer) on one
+      north-star session (bit for bit), and the watchdog on the north
+      star: a NaN injected gives one rollback, the state bit for bit the
+      snapshot.
+   J. ``python -m softbodysim_torch info`` and ``scene batch --seconds 2``
+      as subprocesses (the scene on the 'pass' kernels); ``serve --view``'s
+      viewport frame over HTTP equal to the last reply; vertex_normals of
+      the north star's surface on the card within 1e-5 of the CPU.
+   A {"serving": {...}} line sums up I and J (with the card's name and
+   power limit).
 11. Every kernel at north-star shapes against its plain PyTorch version
    on the card, from one predicted, perturbed state (the Jacobi ones with
    a box collider and the ground); time both.  Each Jacobi pass prints
@@ -2192,6 +2223,440 @@ def mesh_pipeline_path(sbt, device) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# Serving, the CLI and the render layer (phases I-J)
+# --------------------------------------------------------------------------
+
+# the PBD1 north star: bench.py's (8 substeps, 1 iteration, the rest the
+# SolverParams defaults) as the wire carries it
+SERVE_STEPS = 20
+# small sessions (tet_cube(6): the coloured step, captured at first use)
+SMALL_STEPS = 10
+# pipelined frames/s over lock-step frames/s at matched client work
+PIPELINE_GAIN = 1.3
+# a step's host dispatch at most this share of its device time (no hidden
+# synchronize in the sweep step)
+DISPATCH_SHARE = 0.5
+# vertex_normals on the card against the CPU (index_add_ sums in no fixed
+# order on the card; unit normals)
+NORMALS_TOL = 1e-5
+
+
+def wire_message(protocol, topo, wire):
+    return protocol.InitMessage(
+        params=wire, pinned=np.zeros(0, np.uint32), x0=topo.vertices,
+        edges=topo.edges, tets=topo.tets)
+
+
+def client_session(api, port, topo, wire, steps, work_s=0.0,
+                   start=None, steady=None) -> dict:
+    """One PBD1 client: INIT, ``steps`` STEPs, SHUTDOWN.  The first reply's
+    wait carries the server's make time; with ``work_s`` the client sleeps
+    that long after each reply (its frame work), and the frames after the
+    first are timed.  ``start``, ``steady``: barriers passed between INIT
+    and the first STEP, and after the first reply."""
+    with api.PBDClient(port=port, timeout=600.0) as cli:
+        t0 = time.perf_counter()
+        cli.init(topo.vertices, topo.edges, topo.tets, params=wire)
+        if start is not None:
+            start.wait(timeout=600.0)
+            t0 = time.perf_counter()
+        replies = [cli.step(DT)]
+        first_s = time.perf_counter() - t0
+        if steady is not None:
+            steady.wait(timeout=600.0)
+        rtt, t_frames = [], time.perf_counter()
+        for _ in range(steps - 1):
+            t = time.perf_counter()
+            replies.append(cli.step(DT))
+            rtt.append(time.perf_counter() - t)
+            if work_s:
+                time.sleep(work_s)
+        frames_s = time.perf_counter() - t_frames
+    return {"replies": replies, "first_s": first_s, "rtt": rtt,
+            "frames_s": frames_s, "t_end": time.perf_counter()}
+
+
+def served(server, target, *args) -> dict:
+    """Run ``target(*args)`` against a started server, then wait for the
+    server's thread to end."""
+    out = target(*args)
+    server._thread.join(timeout=60.0)
+    if server._thread.is_alive():
+        raise AssertionError("the server thread did not end")
+    return out
+
+
+def same_replies(got, want, label: str) -> None:
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} replies, {len(want)} "
+                             "expected")
+    for k, (a, b) in enumerate(zip(got, want)):
+        if not np.array_equal(a, b):
+            raise AssertionError(
+                f"{label}: reply {k + 1} differs, max "
+                f"{np.abs(a - b).max():.3e} m")
+
+
+def concurrent_sessions(api, port, topo, wire, steps, n=2) -> tuple:
+    """``n`` clients on one multi-session server, from ``n`` threads, their
+    first STEPs (which wait for the servers' make time) released together:
+    (their sessions, the wall seconds from the release of their second
+    STEPs, once every first reply is in, to the last reply)."""
+    import threading
+
+    start, steady = threading.Barrier(n), threading.Barrier(n + 1)
+    out, errors = [None] * n, []
+
+    def run(i):
+        try:
+            out[i] = client_session(api, port, topo, wire, steps,
+                                    start=start, steady=steady)
+        except Exception as e:          # re-raised below
+            errors.append(e)
+            start.abort()
+            steady.abort()
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for th in threads:
+        th.start()
+    steady.wait(timeout=600.0)
+    t0 = time.perf_counter()
+    for th in threads:
+        th.join(timeout=600.0)
+        if th.is_alive():
+            raise AssertionError("a client thread did not end")
+    if errors:
+        raise errors[0]
+    return out, max(s["t_end"] for s in out) - t0
+
+
+def init_beside_a_session(api, port, topo, wire, steady=6,
+                          after=5) -> dict:
+    """Client A steps without pause on a multi-session server while client
+    B sends a second INIT and waits for its first reply: A's frame gaps
+    before B's INIT (median) and while it runs (worst), and B's INIT to
+    first reply.  A's first ``steady`` frames come before B starts, and A
+    goes on for ``after`` frames past B's first reply."""
+    import threading
+
+    a_steady, b_done, a_out, errors = (threading.Event(), threading.Event(),
+                                       {}, [])
+
+    def run_a():
+        try:
+            with api.PBDClient(port=port, timeout=600.0) as cli:
+                cli.init(topo.vertices, topo.edges, topo.tets, params=wire)
+                replies, times, tail = [], [], 0
+                while tail < after:
+                    replies.append(cli.step(DT))
+                    times.append(time.perf_counter())
+                    if len(replies) == steady:
+                        a_steady.set()
+                    tail += b_done.is_set()
+            a_out.update(replies=replies, times=np.array(times))
+        except Exception as e:          # re-raised below
+            errors.append(e)
+        finally:
+            a_steady.set()
+
+    th = threading.Thread(target=run_a)
+    th.start()
+    a_steady.wait(timeout=600.0)
+    try:
+        with api.PBDClient(port=port, timeout=600.0) as cli:
+            t0 = time.perf_counter()
+            cli.init(topo.vertices, topo.edges, topo.tets, params=wire)
+            b_first = cli.step(DT)
+            t1 = time.perf_counter()
+    finally:
+        b_done.set()
+        th.join(timeout=600.0)
+    if th.is_alive():
+        raise AssertionError("client A did not end")
+    if errors:
+        raise errors[0]
+    times = a_out["times"]
+    gaps = np.diff(times)
+    before = gaps[1:steady - 1]            # frames 2..steady, A alone
+    # every gap that overlaps B's INIT-to-first-reply window
+    during = gaps[(times[1:] > t0) & (times[:-1] < t1)]
+    return {"replies": a_out["replies"], "b_first": b_first,
+            "a_median_gap_ms": float(np.median(before)) * 1e3,
+            "a_worst_gap_during_init_ms": float(during.max()) * 1e3,
+            "a_frames_during_init": int(len(during)),
+            "b_init_to_first_reply_s": t1 - t0}
+
+
+def dispatch_vs_device(eng, steps: int) -> tuple:
+    """Per step of a warm Engine: (median host ms of ``step``'s dispatch,
+    median device ms from CUDA events around it)."""
+    host, dev = [], []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        eng.step(DT)
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        dev.append(start.elapsed_time(end))
+    return float(np.median(host)), float(np.median(dev))
+
+
+def serving_path(sbt, topo, device, x_ms: float) -> dict:
+    """Phase I: the PBD1 server on the card at the north star (lock-step,
+    pipelined, two concurrent sessions, the native comm loop), two
+    concurrent small sessions, and the watchdog."""
+    import dataclasses
+
+    from softbodysim_torch import api
+    from softbodysim_torch.api import protocol
+    from softbodysim_torch.api.native_server import NativePBDServer
+    from softbodysim_torch.api.server import engine_from_init
+    from softbodysim_torch.api.watchdog import WatchdogConfig
+    from softbodysim_torch.kernels import sweep as ksw
+
+    wire = protocol.WireParams(substeps=8, iterations=1)
+    msg = wire_message(protocol, topo, wire)
+    payload = protocol.pack_init(msg)
+    print(f"phase I north star over PBD1: INIT {len(payload)} bytes, reply "
+          f"{len(protocol.pack_positions(topo.vertices))} bytes", flush=True)
+
+    # lock-step: SERVE_STEPS round trips, then SERVE_STEPS frames with
+    # client work of about one round trip each
+    reset_counts()
+    srv = api.PBDServer(port=0, verbose=False, device=device)
+    srv.start_background().wait_ready()
+    lock = served(srv, client_session, api, srv.port, topo, wire,
+                  SERVE_STEPS)
+    counts = read_counts()
+    backend, make_s = srv.engine.backend, srv.init_seconds
+    print(f"phase I lock-step: backend {backend}, INIT to first reply "
+          f"{lock['first_s']:.2f} s (server make {make_s:.2f} s), "
+          f"launches {counts}", flush=True)
+    if backend != "sweep":
+        raise AssertionError(f"phase I: backend {backend!r}, expected "
+                             "'sweep'")
+    check_launched(counts, ("w_fill", "edge_sweep", "tet_sweep"), "phase I")
+    lock_ms = float(np.median(lock["rtt"])) * 1e3
+    ref = engine_from_init(protocol.unpack_init(payload[12:]), device)
+    want = [ref.step(DT).positions().copy() for _ in range(SERVE_STEPS)]
+    same_replies(lock["replies"], want, "phase I lock-step")
+    print(f"phase I lock-step: {SERVE_STEPS} replies equal the in-process "
+          f"Engine bit for bit; {lock_ms:.3f} ms per round trip (median of "
+          f"{len(lock['rtt'])}) against phase 3's {x_ms:.3f} ms/step",
+          flush=True)
+    host_ms, dev_ms = dispatch_vs_device(ref, 10)
+    print(f"phase I sweep step: host dispatch {host_ms:.3f} ms, device "
+          f"{dev_ms:.3f} ms (median of 10)", flush=True)
+    if not host_ms < DISPATCH_SHARE * dev_ms:
+        raise AssertionError("phase I: the step's dispatch waits for the "
+                             "device")
+
+    # matched client work: lock-step against pipelined frames
+    work_s = lock_ms / 1e3
+    frames = {}
+    for mode in ("lock-step", "pipelined"):
+        srv = api.PBDServer(port=0, verbose=mode == "pipelined",
+                            pipeline=mode == "pipelined", device=device)
+        srv.start_background().wait_ready()
+        frames[mode] = served(srv, client_session, api, srv.port, topo, wire,
+                              SERVE_STEPS + 1, work_s)
+    same_replies(frames["lock-step"]["replies"][:SERVE_STEPS], want,
+                 "phase I lock-step with client work")
+    pipe = frames["pipelined"]["replies"]
+    same_replies(pipe, [topo.vertices] + want, "phase I pipelined (reply k "
+                 "against lock-step reply k-1)")
+    fps = {m: SERVE_STEPS / r["frames_s"] for m, r in frames.items()}
+    gain = fps["pipelined"] / fps["lock-step"]
+    print(f"phase I frames with {work_s * 1e3:.2f} ms of client work each: "
+          f"lock-step {fps['lock-step']:.2f} frames/s, pipelined "
+          f"{fps['pipelined']:.2f} frames/s ({gain:.2f}x)", flush=True)
+    if not gain >= PIPELINE_GAIN:
+        raise AssertionError(f"phase I: pipelined {gain:.2f}x lock-step, "
+                             f"under {PIPELINE_GAIN}x")
+
+    # two north-star sessions at once on one multi-session server
+    srv = api.PBDServer(port=0, verbose=False, device=device)
+    srv.start_background(multi=True).wait_ready()
+    try:
+        multi, wall = concurrent_sessions(api, srv.port, topo, wire,
+                                          SERVE_STEPS)
+    finally:
+        srv.stop()
+    ksw.raise_on_timeouts()
+    for i, s in enumerate(multi):
+        same_replies(s["replies"], want, f"phase I concurrent session {i}")
+    aggregate = 2 * (SERVE_STEPS - 1) / wall
+    print(f"phase I two concurrent north-star sessions: each bit for bit "
+          f"its solo run, no sweep timeout; aggregate {aggregate:.2f} "
+          f"frames/s, one session alone {1e3 / lock_ms:.2f} frames/s",
+          flush=True)
+
+    # a second INIT while a session steps: the INIT's host work runs
+    # outside the device lock, so the running session goes on stepping
+    srv = api.PBDServer(port=0, verbose=False, device=device)
+    srv.start_background(multi=True).wait_ready()
+    try:
+        beside = init_beside_a_session(api, srv.port, topo, wire)
+    finally:
+        srv.stop()
+    ksw.raise_on_timeouts()
+    same_replies(beside["replies"][:SERVE_STEPS], want,
+                 "phase I session stepping beside a second INIT")
+    same_replies([beside["b_first"]], want[:1],
+                 "phase I second INIT's first reply")
+    print(f"phase I second INIT beside a stepping session: its INIT to "
+          f"first reply {beside['b_init_to_first_reply_s']:.2f} s; the "
+          f"running session's frame gap median "
+          f"{beside['a_median_gap_ms']:.3f} ms before it, worst "
+          f"{beside['a_worst_gap_during_init_ms']:.3f} ms during it "
+          f"({beside['a_frames_during_init']} frames)", flush=True)
+
+    # two small sessions at once: their first STEPs capture the coloured
+    # step's graph
+    small = sbt.meshes.tet_cube(6, 6, 6, size=0.5, center=(0.0, 0.5, 0.0))
+    small_wire = protocol.WireParams(substeps=2, iterations=4)
+    srv = api.PBDServer(port=0, verbose=False, device=device)
+    srv.start_background().wait_ready()
+    solo = served(srv, client_session, api, srv.port, small, small_wire,
+                  SMALL_STEPS)
+    if srv.engine.backend != "gather":
+        raise AssertionError(f"phase I small: backend {srv.engine.backend}")
+    srv = api.PBDServer(port=0, verbose=False, device=device)
+    srv.start_background(multi=True).wait_ready()
+    try:
+        pair, _ = concurrent_sessions(api, srv.port, small, small_wire,
+                                      SMALL_STEPS)
+    finally:
+        srv.stop()
+    for i, s in enumerate(pair):
+        same_replies(s["replies"], solo["replies"],
+                     f"phase I small concurrent session {i}")
+    print(f"phase I two concurrent tet_cube(6) sessions (coloured step, "
+          f"graphs captured at their first STEPs): each bit for bit its "
+          f"solo run", flush=True)
+
+    # the native comm loop
+    nat = NativePBDServer(port=0, verbose=False, device=device)
+    nat.start_background().wait_ready()
+    native = served(nat, client_session, api, nat.port, topo, wire,
+                    SERVE_STEPS)
+    same_replies(native["replies"], want, "phase I native server")
+    print(f"phase I native server: {SERVE_STEPS} replies equal the "
+          f"in-process Engine bit for bit, "
+          f"{np.median(native['rtt']) * 1e3:.3f} ms per round trip",
+          flush=True)
+
+    # the watchdog on the north star: NaN -> one rollback to a snapshot
+    wd = api.Watchdog(ref, WatchdogConfig(check_every=5))
+    for _ in range(10):
+        if not wd.step(DT):
+            raise AssertionError("phase I watchdog: a healthy step rolled "
+                                 "back")
+    step0, snap = wd._snapshots[0]
+    snap = {f.name: getattr(snap, f.name).clone()
+            for f in dataclasses.fields(snap)}
+    st = ref.state
+    x = st.x.clone()
+    x[0, 0] = float("nan")
+    ref.state = dataclasses.replace(st, x=x)
+    ok = [wd.step(DT) for _ in range(5)]
+    if ok.count(False) != 1 or wd.rollbacks != 1 or wd.steps != step0:
+        raise AssertionError(f"phase I watchdog: {ok}, rollbacks "
+                             f"{wd.rollbacks}, at step {wd.steps}")
+    for name, t in snap.items():
+        if not torch.equal(getattr(ref.state, name), t):
+            raise AssertionError(f"phase I watchdog: restored {name} is not "
+                                 "the snapshot")
+    ref.step(DT)
+    if not np.isfinite(ref.positions()).all():
+        raise AssertionError("phase I watchdog: non-finite after rollback")
+    print(f"phase I watchdog: NaN injected at step 10, one rollback to step "
+          f"{step0}, the state bit for bit the snapshot", flush=True)
+    ksw.raise_on_timeouts()
+    return {"init_to_first_reply_s": lock["first_s"],
+            "server_make_s": make_s,
+            "lock_step_ms_per_round_trip": lock_ms,
+            "phase3_ms_per_step": x_ms,
+            "dispatch_host_ms": host_ms, "step_device_ms": dev_ms,
+            "client_work_ms": work_s * 1e3,
+            "lock_step_ms_per_frame": 1e3 / fps["lock-step"],
+            "pipelined_ms_per_frame": 1e3 / fps["pipelined"],
+            "pipelined_gain": gain,
+            "two_session_aggregate_frames_per_s": aggregate,
+            "one_session_frames_per_s": 1e3 / lock_ms,
+            "second_init_to_first_reply_s":
+                beside["b_init_to_first_reply_s"],
+            "frame_gap_median_ms": beside["a_median_gap_ms"],
+            "frame_gap_worst_during_second_init_ms":
+                beside["a_worst_gap_during_init_ms"],
+            "native_ms_per_round_trip": float(np.median(native["rtt"]))
+            * 1e3}
+
+
+def cli_and_render_path(sbt, topo, device, x: np.ndarray) -> dict:
+    """Phase J: ``python -m softbodysim_torch info`` and ``scene batch``
+    as subprocesses on the card, ``serve --view``'s viewport frame against
+    the last reply, and vertex_normals on the card against the CPU."""
+    import urllib.request
+
+    from softbodysim_torch import api
+    from softbodysim_torch.api import protocol
+    from softbodysim_torch.render import vertex_normals
+
+    out = {}
+    for args, want in ((["info"], "kernel library: built"),
+                       (["scene", "batch", "--seconds", "2"],
+                        "backend pass")):
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "softbodysim_torch",
+                              *args], cwd=ROOT, capture_output=True,
+                             text=True, timeout=300)
+        secs = time.perf_counter() - t0
+        print(f"phase J: python -m softbodysim_torch {' '.join(args)} -> "
+              f"rc {run.returncode} in {secs:.1f} s", flush=True)
+        for line in (run.stdout + run.stderr).strip().splitlines():
+            print("  " + line, flush=True)
+        if run.returncode != 0 or want not in run.stdout:
+            raise AssertionError(f"phase J: {args[0]} failed or printed no "
+                                 f"{want!r}")
+        out[f"{args[0]}_s"] = secs
+
+    # serve --view: the viewport's frame is the last reply
+    small = sbt.meshes.tet_cube(6, 6, 6, size=0.5, center=(0.0, 0.5, 0.0))
+    srv = api.PBDServer(port=0, verbose=False, view=True, view_port=0,
+                        device=device)
+    srv.start_background().wait_ready()
+    try:
+        session = served(srv, client_session, api, srv.port, small,
+                         protocol.WireParams(substeps=2, iterations=4), 3)
+        with urllib.request.urlopen(srv._viewer.url + "frame",
+                                    timeout=30) as r:
+            frame = np.frombuffer(r.read(), np.float32).reshape(-1, 3)
+    finally:
+        srv.stop()
+    same_replies([frame], session["replies"][-1:], "phase J serve --view")
+    print("phase J serve --view: the viewport's frame is the last reply, "
+          "bit for bit", flush=True)
+
+    # vertex normals at the north star's surface, phase 3's positions
+    tris = torch.as_tensor(topo.surface_tris, dtype=torch.int64)
+    cpu = vertex_normals(torch.from_numpy(x), tris)
+    card = vertex_normals(torch.from_numpy(x).to(device),
+                          tris.to(device)).cpu()
+    err = float((card - cpu).abs().max())
+    print(f"phase J vertex_normals: {len(topo.surface_tris)} surface "
+          f"triangles, card against CPU max {err:.3e}", flush=True)
+    if not err <= NORMALS_TOL:
+        raise AssertionError(f"phase J: normals differ by {err:.3e}")
+    out["normals_max_err"] = err
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -2280,6 +2745,14 @@ def main() -> int:
     contact["mesh_pipeline"] = mesh_pipeline_path(sbt, device)
     contact["card"] = card
     print(json.dumps({"contact": contact}), flush=True)
+    # serving, the CLI and the render layer, timed before any profiler runs
+    t0 = time.perf_counter()
+    serving = serving_path(sbt, topo, device, x_ms)
+    serving.update(cli_and_render_path(sbt, topo, device,
+                                       x_eng.positions()))
+    serving["seconds"] = time.perf_counter() - t0
+    serving["card"] = card
+    print(json.dumps({"serving": serving}), flush=True)
 
     kres = compare_sweep_kernels(sbt, ksw, topo, device)
     kres.update(compare_legacy_kernels(sbt, ksw, topo, device))
@@ -2296,7 +2769,7 @@ def main() -> int:
                                   *((label, e, 8, ms)
                                     for label, e, ms in programs),
                                   ("BatchTest merged", bt_eng, 64, bt_ms),
-                                  ("batched_128x_jacobi", bd_eng, 5,
+                                  ("batched_128x_jacobi", bd_eng, 2,
                                    bd_ms)):
         t0 = time.perf_counter()
         prof = profile_window(eng, steps, ms)

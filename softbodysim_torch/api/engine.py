@@ -168,6 +168,16 @@ class Engine:
             torch.cuda.synchronize(self.device)
         return self
 
+    def raise_on_timeouts(self) -> "Engine":
+        """Raise if a sweep launch of this engine's step aborted on a
+        timed-out wait since the last check (only the sweep backend's
+        kernels can abort).  Valid once the queued work has finished:
+        after ``block()``, or an event recorded after it."""
+        check = getattr(self._raw_step, "raise_on_timeouts", None)
+        if check is not None:
+            check()
+        return self
+
     def switch_params(self, params: SolverParams,
                       colliders: Optional[Colliders] = "unchanged",
                       **solver_kw) -> "Engine":

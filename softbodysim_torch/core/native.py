@@ -14,6 +14,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import threading
 from typing import Optional
 
 import numpy as np
@@ -24,40 +25,43 @@ _SRC = os.path.normpath(os.path.join(_PKG_DIR, "..", "native",
                                      "softtopo.cpp"))
 
 
-def _build() -> Optional[str]:
-    """Compile the library if this source has no build yet; the path, or
-    None when the source or the compiler is missing or the build fails."""
-    try:
-        with open(_SRC, "rb") as f:
-            key = hashlib.sha256(f.read()).hexdigest()[:16]
-    except OSError:
-        return None
-    out = os.path.join(BUILD_DIR, f"libsofttopo-{key}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    try:
-        subprocess.run(["g++", "-O3", "-std=c++17", "-fPIC", "-shared",
-                        "-o", tmp, _SRC],
-                       check=True, capture_output=True, timeout=300)
-    except (OSError, subprocess.SubprocessError):
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        return None
-    os.replace(tmp, out)         # atomic: concurrent builds race safely
+_BUILD_LOCK = threading.Lock()
+
+
+def build_shared(src: str, stem: str) -> str:
+    """The path of ``src`` built as a shared library into BUILD_DIR
+    (``lib<stem>-<hash of the source>.so``), compiled with ``g++`` first
+    unless this source has a build; raises OSError when the source is
+    missing, RuntimeError when it does not build."""
+    with open(src, "rb") as f:
+        key = hashlib.sha256(f.read()).hexdigest()[:16]
+    out = os.path.join(BUILD_DIR, f"lib{stem}-{key}.so")
+    with _BUILD_LOCK:
+        if os.path.exists(out):
+            return out
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        try:
+            run = subprocess.run(
+                ["g++", "-O3", "-std=c++17", "-fPIC", "-shared", "-o", tmp,
+                 src], capture_output=True, text=True, timeout=300)
+        except (OSError, subprocess.SubprocessError) as e:
+            raise RuntimeError(f"cannot build {src}: {e}") from e
+        if run.returncode != 0:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            raise RuntimeError(f"g++ failed to build {src} "
+                               f"({run.returncode}):\n{run.stderr}")
+        os.replace(tmp, out)     # atomic: concurrent builds race safely
     return out
 
 
 @functools.lru_cache(maxsize=None)
 def get_lib() -> Optional[ctypes.CDLL]:
-    path = _build()
-    if path is None:
-        return None
     try:
-        lib = ctypes.CDLL(path)
-    except OSError:              # a foreign or damaged build: use NumPy
-        return None
+        lib = ctypes.CDLL(build_shared(_SRC, "softtopo"))
+    except (OSError, RuntimeError):  # no source, compiler or usable build:
+        return None                  # use NumPy
     i64, i32, voidp = ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")

@@ -4,11 +4,23 @@ count of kernel launches."""
 
 import collections
 import contextlib
+import threading
 
 import torch
 
-# the launch tallies of the CUDA graph captures in progress (innermost last)
-_captures = []
+# per thread, the launch tallies of the CUDA graph captures in progress
+# (innermost last): a capture records one thread's launches, and threads
+# (server sessions) capture at the same time
+_local = threading.local()
+# the wrappers' counts are shared by every thread
+_counts_lock = threading.Lock()
+
+
+def _captures() -> list:
+    stack = getattr(_local, "captures", None)
+    if stack is None:
+        stack = _local.captures = []
+    return stack
 
 
 def _wrappers():
@@ -22,24 +34,29 @@ def _wrappers():
 
 def count_launch(fn) -> None:
     """One launch of ``fn``'s kernel: added to ``fn.launches``, or, while
-    the current stream captures a CUDA graph (nothing runs), to the
-    capture's tally (``capture_tally``), which each replay adds."""
+    the current stream captures a CUDA graph (nothing runs), to this
+    thread's innermost capture tally (``capture_tally``), which each
+    replay adds."""
     if torch.cuda.is_current_stream_capturing():
-        if _captures:
-            _captures[-1][fn.__name__] += 1
+        stack = _captures()
+        if stack:
+            stack[-1][fn.__name__] += 1
     else:
-        fn.launches += 1
+        with _counts_lock:
+            fn.launches += 1
 
 
 @contextlib.contextmanager
 def capture_tally():
-    """Yields {wrapper name: launches} recorded by the captures inside."""
+    """Yields {wrapper name: launches} recorded by this thread's captures
+    inside."""
     tally = collections.Counter()
-    _captures.append(tally)
+    stack = _captures()
+    stack.append(tally)
     try:
         yield tally
     finally:
-        _captures.pop()
+        stack.pop()
 
 
 def launch_counts() -> dict:
@@ -48,12 +65,14 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    for fn in _wrappers():
-        fn.launches = 0
+    with _counts_lock:
+        for fn in _wrappers():
+            fn.launches = 0
 
 
 def add_launch_counts(counts: dict) -> None:
     """Add ``counts`` ({wrapper name: n}) to the wrappers' counts: a CUDA
     graph's replay launches the kernels its capture recorded."""
-    for fn in _wrappers():
-        fn.launches += counts.get(fn.__name__, 0)
+    with _counts_lock:
+        for fn in _wrappers():
+            fn.launches += counts.get(fn.__name__, 0)

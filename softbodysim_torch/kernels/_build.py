@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 _KDIR = os.path.dirname(os.path.abspath(__file__))
@@ -36,6 +37,8 @@ NVCC_FLAGS = ARCH + (
     "-Xptxas", "-v",          # registers / shared memory / spills in the log
 )
 TIMEOUT = 900
+# one build at a time in a process (threads share the objects' file names)
+_BUILD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -65,6 +68,11 @@ def build() -> str:
     """Compile the library unless these sources already have one; its
     path.  The compilers' output (ptxas resource report) goes to
     ``<lib>.log``."""
+    with _BUILD_LOCK:
+        return _build_locked()
+
+
+def _build_locked() -> str:
     out = library_path()
     if os.path.exists(out):
         return out
@@ -115,7 +123,6 @@ def load() -> ctypes.CDLL:
         "sbs_w_fill": [p, p, p, p, i, i, p],
         "sbs_sweep_ctas": [i, i, i, i, p, p],
         "sbs_sweep": [i, p, p],
-        "sbs_sweep_timeouts": [],
         # jacobi.cu
         "sbs_jacobi_ctas_per_sm": [i, i],
         "sbs_jacobi_pass": [i, p, p, p, p, p, p, p, p, p, p, i, i, p, p, p,

@@ -101,7 +101,7 @@ struct SweepArgs {
   const int4* qinfo;     // per queue position: block, rec offset, rec ints
   const int* qptr;       // (nqueues + 1,) queue -> positions
   int* flags;            // (NB + 1,) release epoch per block; [NB] abort
-  int* timeouts;         // mapped host word (set by the launcher)
+  int* timeouts;         // the plan's timed-out word, pinned host
   int nqueues;
   int nblocks;
   int max_rows;
@@ -665,27 +665,6 @@ cudaError_t opt_in(int kind) {
   return err;
 }
 
-int* g_timeouts_host = nullptr;
-int* g_timeouts_dev = nullptr;
-
-int* timeout_word() {
-  if (g_timeouts_host == nullptr) {
-    int* h = nullptr;
-    if (cudaHostAlloc((void**)&h, sizeof(int),
-                      cudaHostAllocMapped | cudaHostAllocPortable) !=
-        cudaSuccess)
-      return nullptr;
-    *h = 0;
-    if (cudaHostGetDevicePointer((void**)&g_timeouts_dev, h, 0) !=
-        cudaSuccess) {
-      cudaFreeHost(h);
-      return nullptr;
-    }
-    g_timeouts_host = h;
-  }
-  return g_timeouts_dev;
-}
-
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  Each launches on the given
@@ -740,8 +719,7 @@ int sbs_sweep(int kind, const void* args, void* stream) {
   SweepArgs a = *static_cast<const SweepArgs*>(args);
   if (kernel_of(kind) == nullptr) return (int)cudaErrorInvalidValue;
   if (a.nqueues <= 0) return 0;
-  a.timeouts = timeout_word();
-  if (a.timeouts == nullptr) return (int)cudaErrorMemoryAllocation;
+  if (a.timeouts == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = opt_in(kind);
   if (err != cudaSuccess) return (int)err;
   void* params[] = {&a};
@@ -752,16 +730,6 @@ int sbs_sweep(int kind, const void* args, void* stream) {
       (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
-}
-
-// The timed-out-wait word: 1 if a sweep launch aborted since the last
-// call, else 0; reading resets it.
-int sbs_sweep_timeouts(void) {
-  if (g_timeouts_host == nullptr) return 0;
-  volatile int* h = g_timeouts_host;
-  const int v = *h;
-  *h = 0;
-  return v;
 }
 
 }  // extern "C"

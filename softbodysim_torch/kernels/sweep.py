@@ -24,12 +24,17 @@ On a CUDA device a sweep runs the plan's blocks as a dependency schedule
 over Q persistent CTAs (``sweep_plan.stage_plan``; Q from the card's
 occupancy unless ``to_device`` is given ``queues``), in the plan's exact
 block order: bit for bit what one CTA walking the plan gives.  Launches of
-one plan must stay on one stream (they share its flag buffer).
+one plan must stay on one stream (they share its flag buffer).  A launch
+that waits more than 2 s for a block aborts and sets its plan's own
+timed-out word (pinned host memory the kernel writes), so the timeout is
+reported to the plan's owner: its next sweep call raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
+import weakref
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -65,8 +70,9 @@ class Staged:
     and bytes per CTA."""
 
     def __init__(self, plan: GpuPlan, device, capacity: int, nstages: int,
-                 smem_bytes: int):
-        st = sp.stage_plan(plan, capacity)
+                 smem_bytes: int, st: Optional[sp.StagedPlan] = None):
+        if st is None:
+            st = sp.stage_plan(plan, capacity)
         sched = st.schedule
 
         def t(a, dtype):
@@ -85,6 +91,17 @@ class Staged:
         self.flags = torch.zeros(plan.num_blocks + 1, dtype=torch.int32,
                                  device=device)
         self.epoch = 0
+        # 1 once a launch of this plan has aborted on a timed-out wait:
+        # pinned host memory (addressable by the card), read and reset by
+        # raise_on_timeouts
+        self.timeouts = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+        with _STAGED_LOCK:
+            _STAGED.add(self)
+
+
+# every live schedule on the card, for raise_on_timeouts() without a plan
+_STAGED = weakref.WeakSet()
+_STAGED_LOCK = threading.Lock()
 
 
 class DevicePlan(NamedTuple):
@@ -130,26 +147,37 @@ def card_queues(plan: GpuPlan) -> tuple:
     return q, nst.value, smem.value
 
 
-def to_device(plan: GpuPlan, device, queues: Optional[int] = None
-              ) -> DevicePlan:
-    """The plan's tables on ``device``.  On a CUDA device, also its
-    schedule over ``queues`` persistent CTAs: by default as many as the
-    card holds at once; fewer (1 is plan order on one CTA) for tests."""
+def host_stage(plan: GpuPlan, device, queues: Optional[int] = None
+               ) -> Optional[tuple]:
+    """(Q, stages, bytes, StagedPlan): the plan's schedule over ``queues``
+    persistent CTAs of ``device``'s card (default: as many as it holds at
+    once; 1 is plan order on one CTA, for tests), built on the host (the
+    occupancy query launches nothing); None on a CPU device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    with torch.cuda.device(device):
+        q, nst, smem = card_queues(plan)
+    if queues is not None:
+        if not 1 <= queues <= q:
+            raise ValueError(f"queues={queues}: the card holds 1..{q} "
+                             "CTAs of this sweep at once")
+        q = queues
+    return q, nst, smem, sp.stage_plan(plan, q)
+
+
+def to_device(plan: GpuPlan, device, queues: Optional[int] = None,
+              stage: Optional[tuple] = None) -> DevicePlan:
+    """The plan's tables on ``device``; on a CUDA device also its schedule
+    (``stage``, else ``host_stage(plan, device, queues)``)."""
     device = torch.device(device)
 
     def t(a, dtype):
         return _tensor(a, dtype, device)
 
-    staged = None
-    if device.type == "cuda":
-        with torch.cuda.device(device):
-            q, nst, smem = card_queues(plan)
-        if queues is not None:
-            if not 1 <= queues <= q:
-                raise ValueError(f"queues={queues}: the card holds 1..{q} "
-                                 "CTAs of this sweep at once")
-            q = queues
-        staged = Staged(plan, device, q, nst, smem)
+    if stage is None:
+        stage = host_stage(plan, device, queues)
+    staged = None if stage is None else Staged(plan, device, *stage)
     i32, f32, i64 = torch.int32, torch.float32, torch.int64
     return DevicePlan(
         arity=plan.arity, num_blocks=plan.num_blocks, width=plan.width,
@@ -251,11 +279,22 @@ def _addr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def raise_on_timeouts() -> None:
-    """Raise if a sweep launch aborted on a wait of more than 2 s since the
-    last check (the kernels report it in mapped host memory; the sweep
-    wrappers check before every launch, a caller after a synchronize)."""
-    if _lib().sbs_sweep_timeouts():
+def raise_on_timeouts(*staged: Staged) -> None:
+    """Raise if a sweep launch of one of the ``staged`` plans (default: of
+    any live plan) aborted on a wait of more than 2 s since the last check;
+    every word checked is reset.  The kernels report it in the plan's
+    pinned host word; the sweep wrappers check their plan's before every
+    launch, a caller after a synchronize."""
+    plans = staged
+    if not plans:
+        with _STAGED_LOCK:
+            plans = list(_STAGED)
+    aborted = False
+    for st in plans:
+        if st.timeouts.item():
+            st.timeouts.zero_()
+            aborted = True
+    if aborted:
         raise RuntimeError("a CUDA sweep launch timed out waiting for a "
                            "block and aborted: its results are not valid")
 
@@ -268,7 +307,7 @@ def _launch_sweep(name, plan: DevicePlan, xw, lam, wt, alpha, local_iters,
     if st is None:
         raise ValueError(f"{name}: the plan has no kernel schedule (make it "
                          "with to_device on the CUDA device)")
-    raise_on_timeouts()
+    raise_on_timeouts(st)
     # A block's flag holds the epoch of the launch that last released it,
     # so flags are never reset; the epoch is a host counter, which a CUDA
     # graph capturing this launch would freeze (the sweeps are not
@@ -280,7 +319,8 @@ def _launch_sweep(name, plan: DevicePlan, xw, lam, wt, alpha, local_iters,
         rest=plan.rest.data_ptr(), scale=plan.scale.data_ptr(),
         atab=_addr(plan.atab), wt=_addr(wt), rec=st.rec.data_ptr(),
         qinfo=st.qinfo.data_ptr(), qptr=st.qptr.data_ptr(),
-        flags=st.flags.data_ptr(), timeouts=None, nqueues=st.queues,
+        flags=st.flags.data_ptr(), timeouts=st.timeouts.data_ptr(),
+        nqueues=st.queues,
         nblocks=plan.num_blocks, max_rows=st.max_rows, max_rec=st.max_rec,
         nstages=st.nstages, epoch=st.epoch, alpha=float(alpha),
         local_iters=int(local_iters), ms=int(ms))

@@ -10,6 +10,15 @@ not run: the kernel wrappers count the launches it records in its tally
 (``kernels.capture_tally``), and each replay adds that tally to their
 launch counts, so the counts equal an eager run's.  A failed capture
 raises.
+
+Threads (server sessions) may capture at the same time.  Each capture
+runs on a stream of its own in CUDA's thread-local mode: only the
+capturing thread is barred from calls that are unsafe during a capture,
+so another thread that allocates, launches or waits on its own streams
+meanwhile does not invalidate it.  ``torch.cuda.graph`` is not used: it
+synchronizes the device and empties the allocator's cache before it
+begins, which another thread's capture in progress forbids.  The launch
+tallies are per thread (``kernels.capture_tally``).
 """
 
 from __future__ import annotations
@@ -56,8 +65,18 @@ class GraphCache:
             out = body()
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with capture_tally() as tally, torch.cuda.graph(graph):
-            captured = body()
+        with capture_tally() as tally, torch.cuda.stream(
+                torch.cuda.Stream(dev)):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                captured = body()
+            except BaseException:
+                try:                      # leave the stream usable
+                    graph.capture_end()
+                except RuntimeError:
+                    pass
+                raise
+            graph.capture_end()
         if len(self._graphs) >= self.kept:
             self._graphs.pop(next(iter(self._graphs)))
         self._graphs[key] = Graph(graph, captured, dict(tally))

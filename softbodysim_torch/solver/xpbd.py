@@ -331,14 +331,15 @@ class ColouredStep:
 
 def make_xpbd_step(topology, params, colliders=None, *, device=None,
                    superblocks: bool = True, edge_c=None, tet_c=None,
-                   copies: int = 1):
+                   copies: int = 1, host=None):
     """Build ``step(state, dt) -> state`` for the resolved backend.
 
     superblocks: the sweep backend's block width (1024-wide super-blocks,
     or the legacy 128-wide blocks when False).  edge_c / tet_c: optional
     per-constraint compliance (public order), sweep backend only.
     copies: the topology is that many disjoint copies, each hashed alone
-    by the contact stages (coloured backend only)."""
+    by the contact stages (coloured backend only).  host: the sweep
+    backend's host make, built beforehand (``xpbd_sweep.sweep_host``)."""
     backend = resolve_backend(topology, params, device=device)
     if backend == "sweep" and copies != 1:
         raise ValueError("copies > 1 (a batch as one union) requires the "
@@ -347,9 +348,13 @@ def make_xpbd_step(topology, params, colliders=None, *, device=None,
         from .xpbd_sweep import SweepStep
 
         return SweepStep(topology, params, colliders, device=device,
-                         superblocks=superblocks, edge_c=edge_c, tet_c=tet_c)
+                         superblocks=superblocks, edge_c=edge_c, tet_c=tet_c,
+                         host=host)
     if backend != "gather":
         raise ValueError(f"unknown xpbd_backend {backend!r}")
+    if host is not None:
+        raise ValueError("host= (a sweep_host make) requires the sweep "
+                         "backend")
     if edge_c is not None or tet_c is not None:
         raise ValueError(
             "per-constraint compliance (edge_c / tet_c) requires "

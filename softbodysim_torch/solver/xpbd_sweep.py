@@ -176,6 +176,46 @@ class Carry(NamedTuple):
     w_t: Optional[torch.Tensor]
 
 
+class SweepHost(NamedTuple):
+    """A SweepStep's make on the host: the vertex layout and block plans
+    (``cached_plans``), per family its GPU plan and, on a CUDA device, its
+    schedule (``sweep.host_stage``; None on the CPU).  Building it
+    launches nothing on the device, so a server builds it outside its
+    device lock and hands it to ``SweepStep(host=...)``."""
+
+    perm: np.ndarray
+    old2new: np.ndarray
+    block_order: dict
+    gpu_plans: dict
+    stages: dict
+
+
+def sweep_host(topology, params: SolverParams, device=None, *,
+               superblocks: bool = True, edge_c=None,
+               tet_c=None) -> SweepHost:
+    """The host part of ``SweepStep(topology, params, device=device,
+    superblocks=..., edge_c=..., tet_c=...)``."""
+    fam = resolve_block_scheme(params, legacy=not superblocks)
+    perm, old2new, _, e_plan, t_plan = cached_plans(topology, superblocks)
+    (e_sch, e_om, _), (t_sch, t_om, _) = fam["edge"], fam["tet"]
+    gpu_plans = {
+        "edges": sp.build_gpu_plan(
+            e_plan, old2new[topology.edges.astype(np.int64)],
+            scheme=e_sch, omega=e_om, compliance=edge_c)
+        if topology.num_edges > 0 else None,
+        "tets": sp.build_gpu_plan(
+            t_plan, old2new[topology.tets.astype(np.int64)],
+            scheme=t_sch, omega=t_om, compliance=tet_c)
+        if topology.num_tets > 0 else None,
+    }
+    dev = resolve_device(device)
+    return SweepHost(
+        perm=perm, old2new=old2new,
+        block_order={"edges": e_plan, "tets": t_plan}, gpu_plans=gpu_plans,
+        stages={k: sw.host_stage(p, dev)
+                for k, p in gpu_plans.items() if p is not None})
+
+
 class SweepStep:
     """``step(state, dt) -> state`` on the sweep kernels, with the carry
     API: ``pack_state`` -> ``run_carry``* -> ``unpack_state`` keeps the
@@ -188,13 +228,15 @@ class SweepStep:
     raises ValueError).  colliders: a make-time collider set, applied after
     the ground clamp in every iteration; ``colliders_rt`` moves it per
     call.  edge_c / tet_c: optional per-constraint compliance (public
-    order); the compliance scalars then scale them."""
+    order); the compliance scalars then scale them.  host: the make's host
+    part, ``sweep_host`` of the same arguments (default: built here)."""
 
     backend = "sweep"
 
     def __init__(self, topology, params: SolverParams,
                  colliders: Optional[Colliders] = None, *, device=None,
-                 superblocks: bool = True, edge_c=None, tet_c=None):
+                 superblocks: bool = True, edge_c=None, tet_c=None,
+                 host: Optional["SweepHost"] = None):
         fam = resolve_block_scheme(params, legacy=not superblocks)
         if not superblocks and (
                 fam["edge"] != ("scale", 1.0, 1)
@@ -220,24 +262,17 @@ class SweepStep:
         self._edge_c, self._tet_c = edge_c, tet_c
         self.colliders = None if colliders is None else colliders.to(dev)
 
-        perm, old2new, nwin, e_plan, t_plan = cached_plans(topology,
-                                                           superblocks)
+        if host is None:
+            host = sweep_host(topology, params, dev, superblocks=superblocks,
+                              edge_c=edge_c, tet_c=tet_c)
+        perm, old2new = host.perm, host.old2new
         (e_sch, e_om, self._e_k), (t_sch, t_om, self._t_k) = \
             fam["edge"], fam["tet"]
-        self.block_order = {"edges": e_plan, "tets": t_plan}
+        self.block_order = host.block_order
         self.block_scheme = {"scheme": (e_sch, t_sch), "omega": (e_om, t_om),
                              "local_iters": (self._e_k, self._t_k)}
-        self.gpu_plans = {
-            "edges": sp.build_gpu_plan(
-                e_plan, old2new[topology.edges.astype(np.int64)],
-                scheme=e_sch, omega=e_om, compliance=edge_c)
-            if self.has_edges else None,
-            "tets": sp.build_gpu_plan(
-                t_plan, old2new[topology.tets.astype(np.int64)],
-                scheme=t_sch, omega=t_om, compliance=tet_c)
-            if self.has_tets else None,
-        }
-        self.device_plans = {k: sw.to_device(p, dev)
+        self.gpu_plans = host.gpu_plans
+        self.device_plans = {k: sw.to_device(p, dev, stage=host.stages[k])
                              for k, p in self.gpu_plans.items()
                              if p is not None}
         self._perm = torch.as_tensor(perm, dtype=torch.int64).to(dev)
@@ -260,6 +295,15 @@ class SweepStep:
                 plan, c.xw, c.lam_e, a)
             self._tet_sweep = lambda plan, c, a: sw.legacy_tet_sweep(
                 plan, c.xw, c.lam_t, a)
+
+    def raise_on_timeouts(self) -> None:
+        """Raise if a sweep launch of this step aborted on a timed-out
+        wait since the last check (its own plans' words: valid once the
+        launches have finished, e.g. after a synchronize)."""
+        staged = [p.staged for p in self.device_plans.values()
+                  if p.staged is not None]
+        if staged:
+            sw.raise_on_timeouts(*staged)
 
     # ---- public <-> internal layout --------------------------------------
 

@@ -66,7 +66,19 @@ def test_scan_sees_the_whole_port():
                  "softbodysim_torch/solver/contact.py",
                  "softbodysim_torch/core/tetrahedralize.py",
                  "softbodysim_torch/utils/config.py",
-                 "softbodysim_torch/utils/trees.py", "chip_smoke.py"):
+                 "softbodysim_torch/utils/trees.py",
+                 "softbodysim_torch/api/protocol.py",
+                 "softbodysim_torch/api/client.py",
+                 "softbodysim_torch/api/server.py",
+                 "softbodysim_torch/api/watchdog.py",
+                 "softbodysim_torch/api/native_server.py",
+                 "softbodysim_torch/render/__init__.py",
+                 "softbodysim_torch/render/live.py",
+                 "softbodysim_torch/render/normals.py",
+                 "softbodysim_torch/render/embedding.py",
+                 "softbodysim_torch/render/uv_transfer.py",
+                 "softbodysim_torch/render/viewer.py",
+                 "softbodysim_torch/__main__.py", "chip_smoke.py"):
         assert must in names
     # and the scan does catch an import
     assert "jax" in set(_imported_roots(ROOT / "softbodysim_tpu"

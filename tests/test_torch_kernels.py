@@ -963,3 +963,172 @@ def test_contact_steps_on_card_match_cpu(dialect, backend, cuda_device):
         return
     for f in ("x", "v", "edge_lambda", "tet_lambda"):
         assert torch.equal(getattr(a.state, f), getattr(b.state, f)), f
+
+
+# --------------------------------------------------------------------------
+# Several host threads (server sessions): capture tallies, concurrent graph
+# captures, sweep timeouts reported to their own plan
+# --------------------------------------------------------------------------
+
+def test_capture_tallies_are_per_thread(monkeypatch):
+    """Each thread's launches while it captures go to its own innermost
+    tally, whatever another thread captures at the same time; counts
+    outside a capture are not lost under contention (8 threads, a short
+    switch interval)."""
+    import sys
+    import threading
+
+    from softbodysim_torch import kernels
+
+    def fake():
+        pass
+
+    fake.launches = 0
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    inside = threading.Barrier(2)
+    tallies, errors = {}, []
+
+    def capture(n):
+        try:
+            with kernels.capture_tally() as tally:
+                inside.wait(timeout=30)       # both captures open at once
+                for _ in range(n):
+                    kernels.count_launch(fake)
+                inside.wait(timeout=30)
+                tallies[n] = dict(tally)
+            assert kernels._captures() == []
+        except Exception as e:                # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=capture, args=(n,)) for n in (3, 7)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=60)
+        assert not th.is_alive()
+    assert not errors, errors
+    assert tallies == {3: {"fake": 3}, 7: {"fake": 7}}
+    assert fake.launches == 0
+
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(
+            target=lambda: [kernels.count_launch(fake) for _ in range(2000)])
+            for _ in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+            assert not th.is_alive()
+    finally:
+        sys.setswitchinterval(old)
+    assert fake.launches == 8 * 2000
+
+
+@pytest.mark.cuda
+def test_two_threads_capture_the_coloured_step_at_once(cuda_device):
+    """Two threads step their own coloured Engines (a box collider, so the
+    collide kernel runs inside the graph), their first steps -- the
+    captures -- at once and with no lock between them: each equals its
+    solo run bit for bit, and the launch counts are the two solo runs'
+    (3 and 6 steps, so tallies swapped between the captures would
+    show)."""
+    import threading
+
+    from softbodysim_torch.kernels import launch_counts, reset_launch_counts
+
+    box = sbt.Colliders.box((0.0, 0.05, 0.0), (1.0, 0.05, 1.0))
+    cases = {3: sbt.meshes.tet_cube(3, 3, 3, size=0.5,
+                                    center=(0.0, 0.35, 0.0)),
+             6: sbt.meshes.tet_cube(4, 3, 3, size=0.5,
+                                    center=(0.0, 0.4, 0.0))}
+    params = sbt.SolverParams(dialect="xpbd", substeps=2, iterations=3,
+                              xpbd_backend="gather")
+
+    def engine(topo):
+        return sbt.Engine(topo, params, colliders=sbt.Colliders.build(
+            [box], device=cuda_device), device=cuda_device)
+
+    solo, solo_counts = {}, {}
+    for n, topo in cases.items():
+        reset_launch_counts()
+        eng = engine(topo)
+        for _ in range(n):
+            eng.step(DT)
+        torch.cuda.synchronize()
+        solo[n], solo_counts[n] = eng.state, launch_counts()
+    assert solo_counts[3]["collide"] > 0
+
+    engines = {n: engine(topo) for n, topo in cases.items()}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    start = threading.Barrier(2)
+    errors = []
+
+    def run(n):
+        try:
+            start.wait(timeout=60)
+            for _ in range(n):
+                engines[n].step(DT)
+            torch.cuda.current_stream(cuda_device).synchronize()
+        except Exception as e:                # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(n,)) for n in cases]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+        assert not th.is_alive()
+    assert not errors, errors
+    torch.cuda.synchronize()
+    for n in cases:
+        for f in ("x", "v", "edge_lambda", "tet_lambda"):
+            assert torch.equal(getattr(engines[n].state, f),
+                               getattr(solo[n], f)), (n, f)
+    assert launch_counts() == {k: solo_counts[3][k] + solo_counts[6][k]
+                               for k in solo_counts[3]}
+
+
+@pytest.mark.cuda
+def test_sweep_timeout_is_reported_to_its_own_plan(cuda_device):
+    """A launch of one queue of plan A's schedule -- a queue that waits for
+    blocks of other queues, which never run -- aborts after 2 s and sets
+    A's word (pinned host memory the kernel writes).  Plan B, launched
+    after it on the same stream, reports nothing; A's next check raises
+    once."""
+    topo = sbt.meshes.tet_cube(20, 20, 20, size=1.0, center=(0.0, 0.8, 0.0))
+    cons = topo.edges.astype(np.int64)
+    g = tsp.build_gpu_plan(
+        tsp.pack_superblocks(cons, topo.edge_rest, layer_cap=2), cons,
+        scheme="split", omega=1.5)
+    a, b = (ksw.to_device(g, cuda_device) for _ in range(2))
+    assert a.staged.queues > 1
+    V = topo.num_particles
+    xw = torch.zeros((-(-V // tsp.LANES) * tsp.LANES, 4))
+    xw[:V, :3] = torch.from_numpy(topo.vertices)
+    xw[:V, 3] = sbt.init_state(topo, device="cpu").inv_mass
+    xw = xw.to(cuda_device)
+    wt = ksw.w_fill(a, xw)
+    sched = tsp.build_schedule(g, a.staged.capacity)
+    assert sched.queues == a.staged.queues
+    q = next(q for q in range(sched.queues)
+             if sched.wptr[sched.qptr[q + 1]] > sched.wptr[sched.qptr[q]])
+    a.staged.qptr = torch.tensor(sched.qptr[q:q + 2], dtype=torch.int32,
+                                 device=cuda_device)
+    a.staged.queues = 1
+    ksw.edge_sweep(a, xw.clone(), torch.zeros(g.num_blocks * g.width,
+                                              device=cuda_device),
+                   wt, 1e-2, 1)
+    ksw.edge_sweep(b, xw.clone(), torch.zeros(g.num_blocks * g.width,
+                                              device=cuda_device),
+                   wt, 1e-2, 1)
+    torch.cuda.synchronize()
+    ksw.raise_on_timeouts(b.staged)
+    with pytest.raises(RuntimeError, match="timed out"):
+        ksw.raise_on_timeouts(a.staged)
+    ksw.raise_on_timeouts()                   # read and reset: none left
