@@ -156,6 +156,36 @@ I-J. Serving, the CLI and the render layer, after phase H and before any
       the north star's surface on the card within 1e-5 of the CPU.
    A {"serving": {...}} line sums up I and J (with the card's name and
    power limit).
+K. Differentiable simulation (``softbodysim_torch/diff.py``), after phase J
+   and before any profiler runs:
+   K1. The north star on the coloured step's differentiable build (8 x 1,
+      ground on, 4 steps): the ballistic identities of a free body
+      (d(mean final y)/d(dv0) = nsteps dt, d/d(g_y) = T^2 (n+1) / (2n),
+      rel 1e-3); from a random initial velocity field at the edge
+      compliance where alpha is twice the median inverse mass, the
+      trajectory loss's gradient w.r.t. log edge compliance against a
+      central difference on the card (rel 2e-2); ms per value_and_grad
+      and its peak memory with and without remat; a 5-step fit from 10x
+      off (its losses printed, the last under the first).
+   K2. Phase 4's configuration (the floor box) forced to 'segment', the
+      body lowered 5 cm into the box: the collide kernel launched (the
+      Function's forward), the gradient w.r.t. edge_stiffness against a
+      central difference (rel 2e-2), ms and peak memory with and without
+      remat; then the gradient w.r.t. sor_omega against two central
+      differences (rel 2e-2 each) from a start 0.3 m over the box with a
+      random velocity field, where no contact switches inside the
+      difference's span (asserted from the trajectories).
+   K3. kernels/collide.py::collide_positions at north-star shapes: one
+      kernel launch, forward within 1e-6 of collide_plain, gradients
+      w.r.t. the positions and the collider table equal to autograd
+      through collide_plain (max-abs 0).
+   K4. The sweep, legacy and pass steps of phases 3-5 raise when handed
+      a state that requires grad, and their state is unchanged.
+   K5. tet_cube(6) on the floor box, both dialects, 4 steps: the card's
+      trajectory (1e-4 m) and gradients (1e-3 of the largest component)
+      against the CPU's.
+   A {"diff": {...}} line sums up K (with the card's name and power
+   limit).  Every tensor checked is on the card.
 11. Every kernel at north-star shapes against its plain PyTorch version
    on the card, from one predicted, perturbed state (the Jacobi ones with
    a box collider and the ground); time both.  Each Jacobi pass prints
@@ -175,7 +205,9 @@ I-J. Serving, the CLI and the render layer, after phase H and before any
    coloured step on SampleScene's body (torch.profiler: device time per
    kernel, the device's busy share of the timed window); the jacobi
    window must name the edge pass and the tet pass with its collide stage
-   inside its graph replays.
+   inside its graph replays.  Then one step's value_and_grad of phase
+   K1's and K2's configurations (no remat): the device's busy ms and
+   kernel count against phase K's unprofiled ms per step.
    It comes last of the timings: once the profiler has run, the host's
    launches are slower.
 
@@ -199,6 +231,7 @@ from __future__ import annotations
 
 import collections
 import json
+import math
 import os
 import subprocess
 import sys
@@ -967,7 +1000,7 @@ def compare_jacobi_kernels(sbt, topo, device) -> dict:
     xc[:, 1] -= 1.9
     xa, xb = xc.clone(), xc.clone()
     kc.collide(xa, packed, ground)
-    kc.collide_plain(xb, packed, ground)
+    xb = kc.collide_plain(xb, packed, ground)
     torch.cuda.synchronize()
     err = (xa - xb).abs().max().item()
     moved = (xa - xc).abs().max().item()
@@ -1029,7 +1062,7 @@ def compare_fused_passes(sbt, params, passes, xin, device) -> dict:
             fused(plan, xf, outs[i], kd, omd, packed, ground)
         ref = torch.empty_like(xf)
         plain(plan, xf, ref, k, om)
-        kc.collide_plain(ref, packed, ground)
+        ref = kc.collide_plain(ref, packed, ground)
         torch.cuda.synchronize()
         same = bool((outs == want).all().item())
         err = (outs[0] - ref).abs().max().item()
@@ -2657,6 +2690,444 @@ def cli_and_render_path(sbt, topo, device, x: np.ndarray) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# Differentiable simulation (phase K)
+# --------------------------------------------------------------------------
+
+# K1: the north star on the coloured step's differentiable build, 8 x 1,
+# ground on, DIFF_STEPS steps; K2: phase 4's configuration on 'segment'
+DIFF_STEPS = 4
+# the ballistic identities: exact in real arithmetic at any size
+IDENTITY_TOL = 1e-3
+# central differences: step in log compliance (K1) and in the physical
+# stiffness / omega (K2).  A float32 loss over ~1.3M positions rounds at
+# ~1e-7 relative, and the Jacobi forward sums with atomics (run-to-run
+# order), so a difference moves by ~1e-4 of the loss, over 2h: within
+# 2e-2 of the gradient, truncation error (h^2 / 6 of the third
+# derivative) well under it where no contact switches inside +-h.  The
+# omega difference is taken FD_REPEATS times from a start FREE_GAP over
+# the box, where none does (a switch bends the loss inside the span)
+FD_STEP = {"log_edge_compliance": 2e-2, "edge_stiffness": 2e-2,
+           "sor_omega": 2e-2}
+FD_TOL = 2e-2
+FD_REPEATS = 2
+FREE_GAP = 0.3
+FIT_STEPS = 5
+# K5: the card against the CPU at tet_cube(6): trajectories 1e-4 m (the
+# oracle contract), gradients 1e-3 of their largest component (fp32
+# reassociation: index_add in the card's atomic order in the backward)
+K5_GRAD_TOL = 1e-3
+
+
+def on_card(label: str, *tensors) -> None:
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise AssertionError(f"{label}: a tensor on {t.device}")
+
+
+def timed_grad(fn, inputs) -> tuple:
+    """(value, gradients, host ms, peak MB over the memory held before)
+    of one ``fn()`` and its backward on the card, ending in a
+    synchronize."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    val = fn()
+    grads = torch.autograd.grad(val, inputs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    return val.detach(), grads, ms, peak
+
+
+def with_velocity(sbt, state, v):
+    return sbt.SimState(x=state.x, v=v, x_star=state.x_star,
+                        inv_mass=state.inv_mass,
+                        edge_lambda=state.edge_lambda,
+                        tet_lambda=state.tet_lambda)
+
+
+def diff_xpbd_path(sbt, topo, device, nsteps: int = DIFF_STEPS,
+                   fit_steps: int = FIT_STEPS) -> dict:
+    """Phase K1: ``diff.make_rollout`` / ``make_trajectory_loss`` /
+    ``fit`` on the coloured step's differentiable build at full width:
+    the ballistic identities, the gradient w.r.t. log edge compliance
+    against a central difference, ms and peak memory per gradient with
+    and without remat, and a short fit from 10x off."""
+    from softbodysim_torch import diff
+
+    out = {}
+    f32t = dict(dtype=torch.float32, device=device)
+    base = sbt.SolverParams(substeps=8, iterations=1)
+    s0 = sbt.init_state(topo, device=device)
+    # the identities: no ground, no colliders, free body
+    free = base.replace(ground_enabled=False)
+    r = diff.make_rollout(topo, free, dt=DT, nsteps=nsteps, device=device)
+    if not (r.step.backend == "gather" and r.step.differentiable):
+        raise AssertionError(f"phase K1: backend {r.step.backend!r}")
+    dv = torch.zeros(3, **f32t, requires_grad=True)
+    g = torch.tensor(free.gravity, **f32t, requires_grad=True)
+
+    def final_mean_y():
+        tr = r(with_velocity(sbt, s0, s0.v + dv), {"gravity_override": g})
+        on_card("phase K1", tr)
+        return tr[-1, :, 1].mean()
+
+    _, (g_dv, g_g), ms, peak = timed_grad(final_mean_y, (dv, g))
+    n, total = nsteps * free.substeps, nsteps * DT
+    want = {"translation": nsteps * DT,
+            "gravity": total * total * (n + 1) / (2 * n)}
+    got = {"translation": float(g_dv[1]), "gravity": float(g_g[1])}
+    for k in want:
+        rel = abs(got[k] - want[k]) / want[k]
+        print(f"phase K1 {k} identity: d(mean y)/d = {got[k]:.7g}, want "
+              f"{want[k]:.7g}, rel {rel:.2e} (tol {IDENTITY_TOL})",
+              flush=True)
+        if not rel <= IDENTITY_TOL:
+            raise AssertionError(f"phase K1: the {k} identity fails")
+        out[f"{k}_identity_rel"] = rel
+    print(f"phase K1 identities: one value_and_grad in {ms:.1f} ms, peak "
+          f"{peak:.0f} MB", flush=True)
+
+    # a deformed, soft body with the ground on: the edge compliance at
+    # which alpha = c / sdt^2 is the median vertex's 2 w, so the
+    # trajectory depends on it
+    rng = np.random.default_rng(SEED)
+    v0 = torch.from_numpy(rng.normal(0.0, 0.5, (topo.num_particles, 3))
+                          .astype(np.float32)).to(device)
+    st = with_velocity(sbt, s0, v0)
+    sdt = DT / base.substeps
+    c_true = float(2.0 * s0.inv_mass.median() * sdt * sdt)
+    with torch.no_grad():
+        target = diff.make_rollout(topo, base, dt=DT, nsteps=nsteps,
+                                   device=device)(
+            st, {"edge_compliance": torch.tensor(c_true, **f32t)})
+    timings = {}
+    for remat in (True, False):
+        loss = diff.make_trajectory_loss(topo, base, target, dt=DT,
+                                         state0=st, remat=remat,
+                                         device=device)
+        theta = torch.tensor(math.log(3.0 * c_true), **f32t,
+                             requires_grad=True)
+        fn = (lambda: loss({"edge_compliance": torch.exp(theta)}))
+        timed_grad(fn, (theta,))                               # warm
+        val, (gt,), ms, peak = timed_grad(fn, (theta,))
+        timings[remat] = (ms, peak)
+        print(f"phase K1 value_and_grad (remat={remat}): {ms:.1f} ms, peak "
+              f"{peak:.0f} MB over {torch.cuda.memory_allocated() / 2**20:.0f}"
+              f" MB held, loss {float(val):.6e}, dL/dlog c {float(gt):.6e}",
+              flush=True)
+        if remat:
+            h = FD_STEP["log_edge_compliance"]
+            with torch.no_grad():
+                lp, lm = (float(loss({"edge_compliance": torch.exp(
+                    theta + s)})) for s in (h, -h))
+            fd = (lp - lm) / (2 * h)
+            rel = abs(float(gt) - fd) / abs(fd)
+            print(f"phase K1 dL/dlog(edge_compliance) {float(gt):.6e} "
+                  f"against the central difference {fd:.6e} (h {h}): rel "
+                  f"{rel:.2e} (tol {FD_TOL})", flush=True)
+            if not rel <= FD_TOL:
+                raise AssertionError("phase K1: gradient and central "
+                                     "difference disagree")
+            out["fd_rel"] = rel
+            on_card("phase K1", val, gt, target)
+    out.update(ms_remat=timings[True][0], peak_mb_remat=timings[True][1],
+               ms_no_remat=timings[False][0],
+               peak_mb_no_remat=timings[False][1], c_true=c_true)
+
+    t0 = time.perf_counter()
+    res = diff.fit(topo, base, target, dt=DT, state0=st,
+                   fit_params=("edge_compliance",),
+                   init={"edge_compliance": 10.0 * c_true},
+                   steps=fit_steps, learning_rate=0.25, device=device)
+    secs = time.perf_counter() - t0
+    print(f"phase K1 fit ({fit_steps} steps from 10x off): losses "
+          f"{', '.join(f'{x:.6e}' for x in res.losses)}; edge_compliance "
+          f"{res.params['edge_compliance']:.6e} (true {c_true:.6e}) in "
+          f"{secs:.1f} s", flush=True)
+    if not (np.isfinite(res.losses).all()
+            and res.losses[-1] < res.losses[0]):
+        raise AssertionError("phase K1: the fit did not lower the loss")
+    out.update(fit_losses=[float(x) for x in res.losses], fit_s=secs,
+               fit_edge_compliance=res.params["edge_compliance"])
+    return out
+
+
+def diff_jacobi_path(sbt, topo, device, nsteps: int = DIFF_STEPS) -> dict:
+    """Phase K2: phase 4's configuration (the floor box) forced to
+    'segment', the body lowered into the box: the collide kernel's launch
+    count, the gradient w.r.t. edge_stiffness against a central
+    difference, ms and peak memory per gradient; then the gradient
+    w.r.t. sor_omega against central differences from a contact-free
+    start (``omega_check``)."""
+    from softbodysim_torch import diff
+
+    f32t = dict(dtype=torch.float32, device=device)
+    params = sbt.SolverParams(**JACOBI)
+    box = floor_box(sbt, device)
+    s0 = sbt.init_state(topo, device=device)
+    # the body's lowest layer 5 cm into the box: both stages push
+    drop = float(topo.vertices[:, 1].min()) - (FLOOR_BOX_TOP - 0.05)
+    x = s0.x - torch.tensor([0.0, drop, 0.0], **f32t)
+    st = sbt.SimState(x=x, v=s0.v, x_star=x, inv_mass=s0.inv_mass,
+                      edge_lambda=s0.edge_lambda, tet_lambda=s0.tet_lambda)
+    with torch.no_grad():
+        target = diff.make_rollout(topo, params, dt=DT, nsteps=nsteps,
+                                   colliders=box, device=device)(
+            st, {"edge_stiffness": 0.6, "sor_omega": 1.2})
+    out, timings = {}, {}
+    for remat in (True, False):
+        loss = diff.make_trajectory_loss(topo, params, target, dt=DT,
+                                         state0=st, colliders=box,
+                                         remat=remat, device=device)
+        k = torch.tensor(params.edge_stiffness, **f32t, requires_grad=True)
+        om = torch.tensor(params.sor_omega, **f32t, requires_grad=True)
+
+        def fn():
+            return loss({"edge_stiffness": k, "sor_omega": om})
+
+        timed_grad(fn, (k, om))                                 # warm
+        reset_counts()
+        val, grads, ms, peak = timed_grad(fn, (k, om))
+        counts = read_counts()
+        timings[remat] = (ms, peak)
+        print(f"phase K2 value_and_grad (remat={remat}, 'segment'): "
+              f"{ms:.1f} ms, peak {peak:.0f} MB, loss {float(val):.6e}, "
+              f"launches {counts}", flush=True)
+        check_launched(counts, ("collide",), "phase K2")
+        on_card("phase K2", val, *grads, target)
+        if not remat:
+            continue
+        out["collide_launches"] = counts["collide"]
+        h = FD_STEP["edge_stiffness"]
+        with torch.no_grad():
+            lp, lm = (float(loss({"edge_stiffness": k + s,
+                                  "sor_omega": om})) for s in (h, -h))
+        fd = (lp - lm) / (2 * h)
+        rel = abs(float(grads[0]) - fd) / abs(fd)
+        print(f"phase K2 dL/dedge_stiffness {float(grads[0]):.6e} against "
+              f"the central difference {fd:.6e} (h {h}): rel {rel:.2e} "
+              f"(tol {FD_TOL})", flush=True)
+        if not rel <= FD_TOL:
+            raise AssertionError("phase K2: the edge_stiffness gradient "
+                                 "and its central difference disagree")
+        out["fd_rel_edge_stiffness"] = rel
+    out.update(ms_remat=timings[True][0], peak_mb_remat=timings[True][1],
+               ms_no_remat=timings[False][0],
+               peak_mb_no_remat=timings[False][1])
+    out.update(omega_check(sbt, topo, device, params, box, nsteps))
+    return out
+
+
+def omega_check(sbt, topo, device, params, box, nsteps: int) -> dict:
+    """K2's sor_omega gradient against FD_REPEATS central differences,
+    from the body FREE_GAP over the floor box with a random velocity
+    field: every trajectory of the differences stays clear of the box
+    (and so of the ground under it), so no contact switches inside the
+    span and the loss is smooth in omega there."""
+    from softbodysim_torch import diff
+
+    f32t = dict(dtype=torch.float32, device=device)
+    s0 = sbt.init_state(topo, device=device)
+    lift = FLOOR_BOX_TOP + FREE_GAP - float(topo.vertices[:, 1].min())
+    x = s0.x + torch.tensor([0.0, lift, 0.0], **f32t)
+    v0 = torch.from_numpy(np.random.default_rng(SEED + 3).normal(
+        0.0, 0.5, (topo.num_particles, 3)).astype(np.float32)).to(device)
+    st = sbt.SimState(x=x, v=v0, x_star=x, inv_mass=s0.inv_mass,
+                      edge_lambda=s0.edge_lambda, tet_lambda=s0.tet_lambda)
+    r = diff.make_rollout(topo, params, dt=DT, nsteps=nsteps,
+                          colliders=box, device=device)
+    with torch.no_grad():
+        target = r(st, {"edge_stiffness": 0.6, "sor_omega": 1.2})
+    loss = diff.make_trajectory_loss(topo, params, target, dt=DT,
+                                     state0=st, colliders=box, device=device)
+    om = torch.tensor(params.sor_omega, **f32t, requires_grad=True)
+    val, (g,), _, _ = timed_grad(lambda: loss({"sor_omega": om}), (om,))
+    on_card("phase K2", val, g, target)
+    h, fds, lowest = FD_STEP["sor_omega"], [], [float(target[..., 1].min())]
+    for _ in range(FD_REPEATS):
+        pair = []
+        for s in (h, -h):
+            with torch.no_grad():
+                tr = r(st, {"sor_omega": om + s})
+            lowest.append(float(tr[..., 1].min()))
+            pair.append(float(torch.mean(torch.square(tr - target))))
+        fds.append((pair[0] - pair[1]) / (2 * h))
+    clear = min(lowest) - FLOOR_BOX_TOP - params.particle_radius
+    rels = [abs(float(g) - fd) / abs(fd) for fd in fds]
+    print(f"phase K2 dL/dsor_omega {float(g):.6e} (loss {float(val):.6e}) "
+          f"against {FD_REPEATS} central differences "
+          f"{', '.join(f'{fd:.6e}' for fd in fds)} (h {h}, the body "
+          f"{clear:.3f} m clear of the box): rel "
+          f"{', '.join(f'{x:.2e}' for x in rels)} (tol {FD_TOL})",
+          flush=True)
+    if not clear > 0.0:
+        raise AssertionError("phase K2: the omega check's body reached the "
+                             "box")
+    if not max(rels) <= FD_TOL:
+        raise AssertionError("phase K2: the sor_omega gradient and its "
+                             "central differences disagree")
+    return {"fd_rel_sor_omega": max(rels), "omega_clear_m": clear}
+
+
+def collide_function_check(sbt, topo, device) -> dict:
+    """Phase K3: the collide Function at north-star shapes (the floor box,
+    a sphere, a capsule and the ground plane, the body moved into them):
+    its forward within 1e-6 of the plain version, its gradients w.r.t.
+    the positions and the colliders equal to autograd through
+    collide_plain on the same inputs (max-abs 0: the backward is those
+    ops)."""
+    from softbodysim_torch.kernels import collide as kc
+
+    q = (0.1826, 0.3651, 0.5477, 0.7303)
+    packed = kc.pack_colliders(sbt.Colliders.build([
+        sbt.Colliders.box((0.0, 0.1, 0.0), (1.5, 0.1, 1.5)),
+        sbt.Colliders.sphere((0.1, 0.45, 0.0), 0.2),
+        sbt.Colliders.capsule((-0.3, 0.5, 0.2), 0.1, 0.3, rotation=q)],
+        device=device))
+    ground = kc.make_ground(sbt.SolverParams(**JACOBI))
+    s0 = sbt.init_state(topo, device=device)
+    xw = torch.cat([s0.x, s0.inv_mass[:, None]], 1).contiguous()
+    xw[:, 1] -= 1.9
+    xw[::97, 3] = 0.0                                  # some pinned rows
+    rng = np.random.default_rng(SEED + 1)
+    cot = torch.from_numpy(rng.standard_normal((xw.shape[0], 3))
+                           .astype(np.float32)).to(device)
+    w = xw[:, 3].contiguous()
+    xi, pi = (t.clone().requires_grad_(True) for t in (xw[:, :3], packed))
+    reset_counts()
+    out = kc.collide_positions(xi, w, pi, ground)
+    launches = read_counts()["collide"]
+    got = torch.autograd.grad(out, (xi, pi), cot)
+    xr, pr = (t.clone().requires_grad_(True) for t in (xw[:, :3], packed))
+    ref = kc.collide_plain(torch.cat([xr, w[:, None]], 1), pr, ground)[:, :3]
+    want = torch.autograd.grad(ref, (xr, pr), cot)
+    torch.cuda.synchronize()
+    on_card("phase K3", out, ref, *got, *want)
+    err = (out - ref).abs().max().item()
+    gerr = max((a - b).abs().max().item() for a, b in zip(got, want))
+    pushed = int(((out - xw[:, :3]).abs().amax(1) > 0).sum().item())
+    print(f"phase K3 collide Function (V {xw.shape[0]}, 3 colliders + "
+          f"ground): {launches} kernel launch, max|forward - plain| "
+          f"{err:.3e} m (tol {COLLIDE_TOL}), {pushed} rows pushed; "
+          f"max|grad - plain VJP| {gerr:.3e} (must be 0; max|grad p| "
+          f"{got[0].abs().max().item():.3e}, |grad packed| "
+          f"{got[1].abs().max().item():.3e})", flush=True)
+    if launches != int(device.type == "cuda") or not err <= COLLIDE_TOL \
+            or gerr != 0.0 \
+            or not pushed > 0 \
+            or not torch.equal(xi.detach(), xw[:, :3]):
+        raise AssertionError("phase K3: the collide Function fails")
+    return {"forward_max_abs_err": err, "grad_max_abs_err": gerr}
+
+
+def refusal_check(sbt, engines) -> None:
+    """Phase K4: the kernel steps ('sweep', legacy 128-wide, 'pass') raise
+    when handed a state that requires grad, and change nothing."""
+    for label, eng in engines:
+        st = eng.state
+        before = eng.positions()
+        v = st.v.clone().requires_grad_(True)
+        try:
+            eng._raw_step(with_velocity(sbt, st, v), DT)
+        except RuntimeError as e:
+            if "diff.make_rollout" not in str(e):
+                raise
+            print(f"phase K4 {label} ({eng.backend}): raises under grad: "
+                  f"{str(e)[:60]}...", flush=True)
+        else:
+            raise AssertionError(f"phase K4: {label} stepped a state that "
+                                 "requires grad")
+        if not np.array_equal(eng.positions(), before):
+            raise AssertionError(f"phase K4: {label}'s state changed")
+
+
+def diff_profile(sbt, topo, device, grads: dict) -> None:
+    """Phase K's profile (after phase 12): one step's value_and_grad (no
+    remat) of K1's and K2's configurations under torch.profiler: the
+    device's busy ms and kernel count against phase K's unprofiled ms per
+    step (its 4-step gradient over 4)."""
+    from softbodysim_torch import diff
+
+    s0 = sbt.init_state(topo, device=device)
+    for label, params, cols, knob in (
+            ("xpbd", sbt.SolverParams(substeps=8, iterations=1), None,
+             "edge_compliance"),
+            ("jacobi", sbt.SolverParams(**JACOBI), floor_box(sbt, device),
+             "edge_stiffness")):
+        r = diff.make_rollout(topo, params, dt=DT, nsteps=1, colliders=cols,
+                              remat=False, device=device)
+        k = torch.tensor(float(getattr(params, knob)), dtype=torch.float32,
+                         device=device, requires_grad=True)
+
+        def value_and_grad():
+            torch.autograd.grad(r(s0, {knob: k}).square().mean(), k)
+
+        value_and_grad()
+        acts, wall_us = device_activity(value_and_grad)
+        busy = sum(t for _, t in acts.values()) / 1e3
+        kernels = sum(c for c, _ in acts.values())
+        ms = grads[label]["ms_no_remat"] / DIFF_STEPS
+        top = sorted(((_short(n), c, t) for n, (c, t) in acts.items()),
+                     key=lambda x: -x[2])[:8]
+        print(json.dumps({
+            "profile": f"diff {label} value_and_grad, 1 step, no remat",
+            "profiled_wall_ms": wall_us / 1e3, "device_busy_ms": busy,
+            "device_busy_share": busy / ms, "unprofiled_ms_per_step": ms,
+            "device_activities": kernels,
+            "top": {n: {"count": c, "ms": t / 1e3} for n, c, t in top}}),
+            flush=True)
+
+
+def diff_card_vs_cpu(sbt, device) -> dict:
+    """Phase K5: tet_cube(6) on the floor box, both dialects, 4 steps:
+    the card's trajectory and gradients against the CPU's."""
+    from softbodysim_torch import diff
+
+    topo = sbt.meshes.tet_cube(6, 6, 6, size=0.5, center=(0.0, 0.5, 0.0))
+    # the body lands on the box, above the ground: no friction at commit
+    cases = (("xpbd", sbt.SolverParams(substeps=2, iterations=2,
+                                       edge_compliance=1e-2),
+              ("edge_compliance", "volume_compliance")),
+             ("jacobi", sbt.SolverParams(**JACOBI),
+              ("edge_stiffness", "volume_stiffness", "sor_omega")))
+    out = {}
+    for dialect, params, names in cases:
+        res = {}
+        for dev in ("cpu", device):
+            s0 = sbt.init_state(topo, device=dev)
+            v = torch.full_like(s0.v, -2.0).requires_grad_(True)
+            r = diff.make_rollout(topo, params, dt=DT, nsteps=DIFF_STEPS,
+                                  colliders=floor_box(sbt, dev), device=dev)
+            ov = {n: torch.tensor(float(getattr(params, n)),
+                                  dtype=torch.float32, device=dev,
+                                  requires_grad=True) for n in names}
+            tr = r(with_velocity(sbt, s0, v), ov)
+            w = torch.from_numpy(np.random.default_rng(SEED + 2)
+                                 .standard_normal(tuple(tr.shape))
+                                 .astype(np.float32)).to(dev)
+            grads = torch.autograd.grad((tr * w).sum(), [*ov.values(), v])
+            if dev != "cpu":
+                on_card("phase K5", tr, *grads)
+            res[str(dev)] = [tr.detach().cpu()] + [g.cpu() for g in grads]
+        cpu, card = res["cpu"], res[str(device)]
+        x_err = (card[0] - cpu[0]).abs().max().item()
+        g_rel = max(((a - b).abs().max() / b.abs().max()).item()
+                    if b.abs().max() > 0 else float("inf")
+                    for a, b in zip(card[1:], cpu[1:]))
+        print(f"phase K5 {dialect} tet_cube(6), {DIFF_STEPS} steps on the "
+              f"floor box: card vs CPU trajectory {x_err:.3e} m (tol "
+              f"{X_TOL}), gradients ({', '.join(names)}, v0) rel "
+              f"{g_rel:.3e} (tol {K5_GRAD_TOL})", flush=True)
+        if not (x_err <= X_TOL and g_rel <= K5_GRAD_TOL):
+            raise AssertionError(f"phase K5 {dialect}: card and CPU "
+                                 "disagree")
+        out[dialect] = {"x_err": x_err, "grad_rel": g_rel}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -2753,6 +3224,18 @@ def main() -> int:
     serving["seconds"] = time.perf_counter() - t0
     serving["card"] = card
     print(json.dumps({"serving": serving}), flush=True)
+    # differentiable simulation, before any profiler runs
+    t0 = time.perf_counter()
+    grads = {"xpbd": diff_xpbd_path(sbt, topo, device),
+             "jacobi": diff_jacobi_path(sbt, topo, device),
+             "collide_function": collide_function_check(sbt, topo, device)}
+    refusal_check(sbt, (("xpbd north star", x_eng),
+                        ("jacobi tet_cube(47)", j_eng),
+                        ("xpbd legacy 128-wide", l_eng)))
+    grads["card_vs_cpu"] = diff_card_vs_cpu(sbt, device)
+    grads["seconds"] = time.perf_counter() - t0
+    grads["card"] = card
+    print(json.dumps({"diff": grads}), flush=True)
 
     kres = compare_sweep_kernels(sbt, ksw, topo, device)
     kres.update(compare_legacy_kernels(sbt, ksw, topo, device))
@@ -2781,6 +3264,7 @@ def main() -> int:
                      "tile_pass_kernel<4, true>"):
             if eng is j_eng and kern not in prof["device"]:
                 raise AssertionError(f"the jacobi profile names no {kern}")
+    diff_profile(sbt, topo, device, grads)
 
     ksw.raise_on_timeouts()
     src = "softbodysim_torch/kernels/csrc/"

@@ -33,6 +33,17 @@ partitioned into the fewest merged programs), ``DynamicMergedWorld``
 (bodies added and removed mid-run), and ``parallel`` (batched copies of
 one body, grouped families, heterogeneous padded batches).
 
+Differentiable simulation (``diff``): ``diff.make_rollout``,
+``make_trajectory_loss`` and ``fit`` on ``torch.autograd`` through the
+plain steps' differentiable build, the collide kernel behind a
+``torch.autograd.Function``::
+
+    from softbodysim_torch import diff
+
+    res = diff.fit(topo, sbt.SolverParams(ground_enabled=False), target,
+                   dt=1 / 60, fit_params=("edge_compliance",),
+                   state0=state0, device="cuda")
+
 Entry points run on the card (``cuda:0``) unless given ``device="cpu"``,
 where the kernels' plain PyTorch versions run instead (the tests).
 """
@@ -46,11 +57,12 @@ from .api.dynamic import DynamicMergedWorld
 from .api.engine import Engine
 from .api.scenes import PartitionedSceneEngine, Scene
 from .api.world import World, Body
+from . import diff
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Colliders", "SimState", "SolverParams", "init_state", "Topology",
     "build_topology", "meshes", "make_step", "Engine", "World", "Body",
-    "DynamicMergedWorld", "Scene", "PartitionedSceneEngine",
+    "DynamicMergedWorld", "Scene", "PartitionedSceneEngine", "diff",
 ]

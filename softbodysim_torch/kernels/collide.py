@@ -3,17 +3,28 @@ its plain PyTorch version beside it.
 
 * ``collide`` -- replaces ``softbodysim_tpu/kernels/collide.py::
   _collide_kernel``: the ground plane, then every collider in order, in one
-  pass over the particles.  The paths that run the stage on its own call
-  it (the xpbd steps, the jacobi gather and segment backends); the jacobi
-  pass backend runs the same code fused into its last pass of each
-  iteration (``jacobi.jacobi_tet_pass_collide``, ``csrc/collide_math.cuh``).
+  pass over the particles.  The jacobi pass backend runs the same code
+  fused into its last pass of each iteration
+  (``jacobi.jacobi_tet_pass_collide``, ``csrc/collide_math.cuh``).
+* ``collide_positions`` -- the same stage on positions and inverse masses
+  as a ``torch.autograd.Function``, for the plain steps (xpbd 'gather',
+  jacobi 'segment' / 'gather', the heterogeneous batch): its forward
+  builds the (V, 4) table and runs the kernel on it in place on the card,
+  as those steps did around ``collide``; its backward is the
+  vector-Jacobian product of ``collide_plain``, recomputed at the saved
+  inputs (the JAX package's custom-VJP sidestep,
+  ``softbodysim_tpu/diff.py::_sharded_xpbd_custom_vjp``: forward on one
+  implementation, backward through its twin's linearisation, which the
+  kernel's check against ``collide_plain`` licenses).  No backward kernel
+  is written: the JAX kernel has no VJP either.
 
-The wrapper works in place on a (V, 4) f32 table of rows x, y, z, inverse
-mass (the layout of the pass backend; the gather and segment backends
-build it around the call) and writes only free rows.  It runs the plain
-version for a table on the CPU and launches the kernel for a table on a
-CUDA device, raising if the launch is refused; ``collide.launches`` counts
-the kernel launches and nothing else.
+``collide`` works in place on a (V, 4) f32 table of rows x, y, z, inverse
+mass (the layout of the pass backend) and writes only free rows; the
+callers that own such a table call it (the sweep step, the pass
+backend's plain version).  Both wrappers run the plain version on the CPU
+and launch the kernel on a CUDA device, raising if the launch is refused;
+``collide.launches`` counts the kernel's launches by either wrapper and
+nothing else.  ``collide_plain`` is out of place.
 """
 
 from __future__ import annotations
@@ -109,7 +120,7 @@ def unpack_colliders(packed: torch.Tensor) -> Colliders:
 def collide_plain(xw: torch.Tensor, packed: torch.Tensor,
                   ground: Ground) -> torch.Tensor:
     """``project_ground_plane`` then ``collide_particles`` on the free rows
-    of ``xw``, in place; returns xw."""
+    of ``xw``: a new (V, 4) table (xw is not written)."""
     p = xw[:, :3]
     if ground.enabled:
         point, normal = (torch.tensor(v, dtype=torch.float32,
@@ -117,8 +128,8 @@ def collide_plain(xw: torch.Tensor, packed: torch.Tensor,
                          for v in (ground.point, ground.normal))
         p = project_ground_plane(p, ground.radius, point, normal)
     p = collide_particles(p, ground.radius, unpack_colliders(packed))
-    xw[:, :3] = torch.where((xw[:, 3] != 0.0)[:, None], p, xw[:, :3])
-    return xw
+    p = torch.where((xw[:, 3] != 0.0)[:, None], p, xw[:, :3])
+    return torch.cat([p, xw[:, 3:]], 1)
 
 
 def _check_table(xw: torch.Tensor) -> torch.device:
@@ -148,16 +159,67 @@ def collide(xw: torch.Tensor, packed: torch.Tensor,
     dev = _check_table(xw)
     check_packed(packed, dev)
     if dev.type == "cpu":
-        return collide_plain(xw, packed, ground)
+        return xw.copy_(collide_plain(xw, packed, ground))
+    _launch(xw, packed, ground)
+    return xw
+
+
+def _launch(xw: torch.Tensor, packed: torch.Tensor, ground: Ground) -> None:
+    """The kernel on ``xw`` (a checked table on the card), in place,
+    counted as ``collide``'s launch."""
     (gpx, gpy, gpz), (gnx, gny, gnz) = ground.point, ground.normal
     f = ctypes.c_float
     rc = _lib().sbs_collide(
         _ptr(xw), xw.shape[0], _ptr(packed), packed.shape[0],
         int(ground.enabled), f(gpx), f(gpy), f(gpz), f(gnx), f(gny), f(gnz),
-        f(ground.radius), _stream(dev))
+        f(ground.radius), _stream(xw.device))
     _raise_on(rc, "collide")
     count_launch(collide)
-    return xw
 
 
 collide.launches = 0
+
+
+class CollideFunction(torch.autograd.Function):
+    """The collide stage with a gradient: forward on the kernel (the plain
+    version on the CPU) into the (V, 4) table it builds from (p, w),
+    backward through ``collide_plain`` at the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, p, w, packed, ground):
+        ctx.ground = ground
+        ctx.save_for_backward(p, w, packed)
+        xw = torch.cat([p, w[:, None]], 1)
+        if xw.device.type == "cpu":
+            return collide_plain(xw, packed, ground)
+        _launch(xw, packed, ground)
+        return xw
+
+    @staticmethod
+    def backward(ctx, grad):
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            out = collide_plain(torch.cat([ins[0], ins[1][:, None]], 1),
+                                ins[2], ctx.ground)
+            got = iter(torch.autograd.grad(
+                out, [t for t in ins if t.requires_grad], grad))
+        return (*(next(got) if n else None for n in need), None)
+
+
+def collide_positions(p: torch.Tensor, w: torch.Tensor, packed: torch.Tensor,
+                      ground: Ground) -> torch.Tensor:
+    """The collide stage on positions ``p`` (V, 3) with inverse masses
+    ``w`` (V,): new (V, 3) positions (free rows moved), with a gradient
+    w.r.t. ``p``, ``w`` and ``packed`` (``CollideFunction``)."""
+    dev = p.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if p.dtype != torch.float32 or w.dtype != torch.float32 \
+            or p.dim() != 2 or p.shape[1] != 3 \
+            or tuple(w.shape) != tuple(p.shape[:1]) or w.device != dev:
+        raise ValueError("p must be a (V, 3) and w a (V,) float32 tensor "
+                         "on one device")
+    check_packed(packed, dev)
+    return CollideFunction.apply(p, w, packed, ground)[:, :3]

@@ -128,10 +128,11 @@ def tet_jacobi_deltas(x_pred, inv_mass, tets, tet_rest_vol, stiffness, nv):
 
 def apply_delta(x_pred, inv_mass, delta, cnt, omega):
     """x += (omega / cnt) * delta for free particles with cnt > 0
-    (SoftBodySolver.cs:521-527)."""
+    (SoftBodySolver.cs:521-527); omega: a float or a 0-dim tensor."""
     ok = (cnt > 0) & (inv_mass != 0.0)
     cntf = cnt.to(x_pred.dtype).clamp_min(1.0)
-    scale = torch.full_like(cntf, f32(omega)) / cntf
+    scale = (omega if isinstance(omega, torch.Tensor)
+             else torch.full_like(cntf, f32(omega))) / cntf
     return torch.where(ok[:, None], x_pred + scale[:, None] * delta, x_pred)
 
 
@@ -415,7 +416,7 @@ def _pass(plan, arity, fn, plain, xin, xout, k, omega, cnt_out, packed=None,
     if dev.type == "cpu":
         plain(plan, xin, xout, k, omega, cnt_out)
         if packed is not None:
-            kc.collide_plain(xout, packed, ground)
+            xout.copy_(kc.collide_plain(xout, packed, ground))
         return
     _launch(plan, arity, xin, xout, k, omega, cnt_out, fn.__name__, packed,
             ground)

@@ -149,9 +149,7 @@ def make_hetero_step(batch: HeteroBatch, params: SolverParams,
         d, c = tet_phase_b(glam, valid, w, ts, tt, tm)
         x = apply_delta(x, w, d, c, omega)
         if do_collide:
-            xw = kc.collide(torch.cat([x, w[:, None]], 1).contiguous(),
-                            packed, ground)
-            x = xw[:, :3]
+            x = kc.collide_positions(x, w, packed, ground)
         return x
 
     def step(state: SimState, dt) -> SimState:

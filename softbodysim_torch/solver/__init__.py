@@ -6,7 +6,11 @@ from .xpbd import make_xpbd_step
 
 def make_step(topology, params, colliders=None, *, device=None, **kw):
     """Dispatch on params.dialect: 'xpbd' (server contract) or 'jacobi'
-    (in-engine contract), on ``device`` (default: the card)."""
+    (in-engine contract), on ``device`` (default: the card).
+    ``differentiable=True`` (xpbd only; a keyword of the port's own, not
+    a SolverParams field) builds the coloured step for autograd, 'auto'
+    resolving to 'gather' (``diff.py``); the jacobi plain steps are
+    differentiable as built."""
     if params.dialect == "xpbd":
         return make_xpbd_step(topology, params, colliders=colliders,
                               device=device, **kw)

@@ -17,7 +17,10 @@ colliders -> self -> surface), and writes back only rows with w != 0:
     ``softbodysim_tpu/solver/xpbd_pallas.py:527-573``.
 The contact radius is max(1e-6, particle_radius) in both dialects.  The
 stages are static-shape tensor ops with no host synchronisation, so the
-steps that replay CUDA graphs capture them.
+steps that replay CUDA graphs capture them.  They are out of place, so
+autograd follows them w.r.t. the positions (the hashes are integers and
+carry none; under autograd the surface stage's integer corner sum takes
+the float scatter's gradient, ``solver/surface_collide.py``).
 """
 
 from __future__ import annotations

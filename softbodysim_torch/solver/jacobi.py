@@ -24,7 +24,13 @@ the colliders and the contact stages, and back (the JAX package's
 ``solve_collisions``).  ``use_pallas='off'`` is refused on a CUDA device.
 The per-constraint math lives beside the pass kernels' plain versions
 (``kernels/jacobi.py``).  Tensors are new per operation (no in-place
-updates), as in the JAX package.
+updates), as in the JAX package: the collide stage goes through
+``kernels/collide.py::collide_positions``, a ``torch.autograd.Function``
+whose forward is the kernel on the card, and the stiffness and omega
+overrides may be tensors, so the segment and gather steps are
+differentiable as built (``diff.make_rollout`` runs 'segment').  The
+'pass' backend raises when handed a tensor that requires grad
+(``select.refuse_grad``).
 """
 
 from __future__ import annotations
@@ -180,9 +186,10 @@ class JacobiStep:
     # ---- stages -----------------------------------------------------------
 
     def _edges(self, x, w, k_edge):
-        """k_edge: a float or an (E,) tensor (public order)."""
+        """k_edge: a float, a 0-dim tensor or an (E,) tensor (public
+        order)."""
         if self.backend == "gather":
-            table = isinstance(k_edge, torch.Tensor)
+            table = isinstance(k_edge, torch.Tensor) and k_edge.dim() > 0
 
             def k_of(kb, eb):
                 k = k_edge[eb] if table else k_edge
@@ -218,8 +225,7 @@ class JacobiStep:
         only."""
         pw = x if l2w is None else x @ l2w[:3, :3].T + l2w[:3, 3]
         if self.do_collide:
-            pw = kc.collide(torch.cat([pw, w[:, None]], 1).contiguous(),
-                            packed, self.ground)[:, :3]
+            pw = kc.collide_positions(pw, w, packed, self.ground)
         if self.contact is not None:
             pw = self.contact(pw, w)
         if w2l is None:
@@ -235,10 +241,10 @@ class JacobiStep:
                  local_to_world_rt=None, world_to_local_rt=None) -> SimState:
         """One step.  Overrides: the stiffness (each a scalar, or a
         per-constraint tensor in public order on the step's device, as a
-        batch of scenes with a stiffness each passes it) and omega;
-        collider poses for this step (same count as the make-time set);
-        the body transforms for this step (only with make-time
-        transforms)."""
+        batch of scenes with a stiffness each passes it) and omega (a
+        float or a 0-dim tensor); collider poses for this step (same count
+        as the make-time set); the body transforms for this step (only
+        with make-time transforms)."""
         p = self.params
 
         def stiffness(override, table, default):
@@ -249,7 +255,9 @@ class JacobiStep:
 
         k_edge = stiffness(edge_stiffness, self.edge_k, p.edge_stiffness)
         k_vol = stiffness(volume_stiffness, self.tet_k, p.volume_stiffness)
-        omega = f32(p.sor_omega if sor_omega is None else sor_omega)
+        omega = (sor_omega.to(self.device, torch.float32)
+                 if isinstance(sor_omega, torch.Tensor)
+                 else f32(p.sor_omega if sor_omega is None else sor_omega))
         l2w = self.l2w if local_to_world_rt is None else _as_table(
             local_to_world_rt, self.device)
         w2l = self.w2l if world_to_local_rt is None else _as_table(

@@ -43,6 +43,11 @@ Internal layout (one device, public vertex order, no permutation):
 Between substeps xw holds the committed positions.  Stepping updates the
 tables in place (saving a table per pass) and swaps xw / xs; ``run_carry``
 returns the carry with the current table first.
+
+Not differentiable: the kernels write the tables in place, unseen by
+autograd, so a step handed a tensor that requires grad raises
+(``select.refuse_grad``; ``diff.make_rollout`` builds the 'segment' step),
+as ``jax.grad`` through the JAX passes' ``pallas_call`` fails.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from ..kernels import jacobi_plan
 from .accel import chebyshev_loop
 from .contact import make_contact_stage
 from .graphs import GraphCache
+from .select import refuse_grad
 
 
 class PassCarry(NamedTuple):
@@ -124,6 +130,7 @@ class JacobiPassStep:
     def pack_state(self, state: SimState) -> PassCarry:
         """Public state -> carry (new tensors; ``state`` is not touched and
         serves as the template for ``unpack_state``)."""
+        refuse_grad("the 'pass' step", state)
         dev = self.device
         xw = torch.cat([state.x.to(dev, torch.float32),
                         state.inv_mass.to(dev, torch.float32)[:, None]],
@@ -255,6 +262,8 @@ class JacobiPassStep:
     def step_n(self, state: SimState, dt, n: int, edge_stiffness=None,
                volume_stiffness=None, sor_omega=None,
                colliders_rt: Optional[Colliders] = None) -> SimState:
+        refuse_grad("the 'pass' step", state, edge_stiffness,
+                    volume_stiffness, sor_omega, colliders_rt)
         carry = self.run_carry(self.pack_state(state), dt, n, edge_stiffness,
                                volume_stiffness, sor_omega, colliders_rt)
         return self.unpack_state(carry, state)

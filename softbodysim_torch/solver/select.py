@@ -11,15 +11,43 @@ pass kernels ("pass") on a CUDA device at >= 100k constraints without a
 body transform, when the mesh's tile plans fit the pass kernels
 (``kernels/jacobi_plan.py``: a dense mesh may not), and to "gather"
 otherwise; "pallas" is an alias of "pass".
+
+The kernel backends write their tables in place through ctypes, so
+autograd sees none of it: ``refuse_grad`` makes a kernel step raise when
+it is handed anything that requires grad, as ``jax.grad`` through a
+``pallas_call`` without a VJP fails (``diff.make_rollout`` runs the plain
+backends, as ``softbodysim_tpu/diff.py`` runs its XLA twins).
 """
 
 from __future__ import annotations
 
+import torch
+
 from ..core.state import resolve_device
 from ..kernels import jacobi_plan
+from ..utils.trees import leaves
 
 SWEEP_MIN_CONSTRAINTS = 100_000
 _KERNEL_BACKEND = {"xpbd": "sweep", "jacobi": "pass"}
+
+
+def refuse_grad(step: str, *values) -> None:
+    """Raise when gradients are enabled and any of ``values`` (tensors,
+    states, collider sets) requires grad: ``step`` runs code autograd
+    cannot follow (kernels and CUDA graphs writing in place).  The kernel
+    steps call it where a public state enters (``step_n``,
+    ``pack_state``), not per ``run_carry``: a carry comes from
+    ``pack_state``."""
+    if torch.is_grad_enabled() and any(
+            getattr(leaf, "requires_grad", False)
+            for _, leaf in leaves(values)):
+        raise RuntimeError(
+            f"{step} writes its tables in place through CUDA kernels or "
+            "graphs that define no gradient, and it was handed a tensor "
+            "that requires grad: differentiate through softbodysim_torch."
+            "diff.make_rollout, which builds the differentiable steps (xpbd"
+            " 'gather' / 'scatter' with make_step(..., differentiable=True),"
+            " jacobi 'segment' / 'gather'), or step under torch.no_grad()")
 
 
 def resolve_backend(topology, params, *, device=None, local_to_world=None,

@@ -24,6 +24,11 @@ addition is associative, so the sums are the same bits in any order, run
 to run, graphed or eager, on either device.  The rounding (< 1e-12 m per
 reaction) is far below float32's resolution of the positions, and the
 total is rounded once to float32 and added to the particle-side sum.
+Integers carry no gradient: when gradients are on and the positions or
+inverse masses require grad, the stage also sums the reactions as floats
+and adds ``flt - flt.detach()``, exactly 0 in the forward, so the value
+stays the integer sum's bit for bit and the gradient is the float
+scatter-add's, the JAX package's.
 
 Memory: the candidate tensors are (rows, offsets, max_per_cell[, 3]); the
 27 offsets go in chunks under ``spatial.CANDIDATE_BUDGET`` entries, as in
@@ -129,7 +134,9 @@ def surface_collision_deltas(p, inv_mass, tris, thickness, cell_size,
     covers all of p but only vertices [own_offset, own_offset + own_count)
     are queried; returns ``(vertex_deltas (own_count, 3), corner_reactions
     (N, 3))``.  ``copies``: the rows, and the triangles, are that many
-    disjoint copies, each hashed alone (``solver/spatial.py``)."""
+    disjoint copies, each hashed alone (``solver/spatial.py``).  Under
+    autograd the corner reactions carry the float scatter's gradient
+    (module docstring)."""
     n = p.shape[0]
     dev = p.device
     tris = torch.as_tensor(np.asarray(tris, np.int64)).to(dev) \
@@ -165,6 +172,8 @@ def surface_collision_deltas(p, inv_mass, tris, thickness, cell_size,
     h = float(thickness)
     vertex_deltas = torch.zeros_like(pq)
     fixed = torch.zeros((n, 3), dtype=torch.int64, device=dev)
+    flt = (p.new_zeros((n, 3)) if torch.is_grad_enabled()
+           and (p.requires_grad or inv_mass.requires_grad) else None)
     for lo, hi in offset_chunks(len(own_ids), m):
         cand_pos = start[:, lo:hi, None] + slot            # (Nq, k, M)
         valid = (cand_pos < end[:, lo:hi, None]) & ~dup[:, lo:hi, None]
@@ -193,7 +202,12 @@ def surface_collision_deltas(p, inv_mass, tris, thickness, cell_size,
             contrib = -nrm * (s * (wk[k] * bary[k]))[..., None]
             fixed.index_add_(0, ta[..., k].reshape(-1),
                              _fixed(contrib.reshape(-1, 3)))
+            if flt is not None:
+                flt = flt.index_add(0, ta[..., k].reshape(-1),
+                                    contrib.reshape(-1, 3))
     corners = fixed.to(torch.float32) * float(2.0 ** -FIXED_BITS)
+    if flt is not None:
+        corners = corners + (flt - flt.detach())
 
     if own_offset is not None:
         if return_overflow:

@@ -24,11 +24,23 @@ step captures nothing new (the JAX step takes them as traced scalars).
 Every backend
 applies colliders (world space, particle radius 0) after the ground clamp
 in each iteration; on a CUDA device that stage is the fused collide
-kernel (``kernels/collide.py``), launched outside the graph, on the CPU its
-plain version.  Then, with ``self_collision`` / ``surface_collision`` on,
-the contact stages (``solver/contact.py``); on the card they run inside
-the iteration's graph, or in a graph of their own after the collide
-kernel when the step has colliders.
+kernel, launched outside the graph, on the CPU its plain version, behind
+``kernels/collide.py::collide_positions`` (a ``torch.autograd.Function``
+with ``collide_plain``'s gradient).  Then, with ``self_collision`` /
+``surface_collision`` on, the contact stages (``solver/contact.py``); on
+the card they run inside the iteration's graph, or in a graph of their own
+after the collide kernel when the step has colliders.
+
+The differentiable build (``make_xpbd_step(..., differentiable=True)``,
+what ``diff.make_rollout`` builds) is the same coloured sweep written for
+autograd, the counterpart of the JAX package's differentiable 'scatter'
+step: no CUDA graph, the lambdas updated out of place (one tensor per
+colour), the compliances, friction and gravity overrides kept as tensors
+down to the commit (0-dim, or per constraint for the compliances), the
+ground clamp as ``torch.maximum`` (a tie splits the gradient, as
+``jnp.maximum``); the collide and contact stages carry their gradients in
+either build.  The kernel backend ('sweep') has no such build: it raises
+when handed a tensor that requires grad (``select.refuse_grad``).
 """
 
 from __future__ import annotations
@@ -44,7 +56,14 @@ from ..kernels import collide as kc
 from ..kernels.sweep import EPS_LEN, EPS_WSUM, SIXTH
 from .contact import make_contact_stage
 from .graphs import GraphCache
-from .select import resolve_backend
+from .select import refuse_grad, resolve_backend
+
+
+def _at_least(t: torch.Tensor, lo: float) -> torch.Tensor:
+    """max(t, lo) as ``jnp.maximum``: a tie splits the gradient."""
+    return torch.maximum(t, torch.full_like(t, lo))
+
+
 
 
 def edge_dlambda(x, w, i0, i1, rest, lam, alpha):
@@ -81,6 +100,60 @@ def tet_dlambda(x, w, idx, rest, lam, alpha):
     return dlam, [gr * (wr * dlam)[:, None] for gr, wr in zip(g, ws)]
 
 
+def edge_pass_diff(x, w, flat, rest, lam, alpha, signs):
+    """One colour's distance projection written for autograd, the JAX
+    package's 'scatter' form: (x', dlambda).  flat: the colour's (K, 2)
+    vertex ids row-major, flattened; signs: (1, -1).  The corrections are
+    scattered with ``index_add`` (each vertex at most once per colour:
+    x + correction exactly), whose backward is a gather; positions are
+    gathered with ``index_select``, whose backward scatters without
+    sorting.  The arithmetic is ``edge_dlambda``'s but for the length's
+    sum of squares, a reduction."""
+    k = rest.shape[0]
+    p0, p1 = x.index_select(0, flat).view(k, 2, 3).unbind(1)
+    w01 = w.index_select(0, flat).view(k, 2)
+    wsum = w01.sum(1)
+    d = p0 - p1
+    length = torch.sqrt((d * d).sum(-1))
+    valid = (wsum != 0.0) & (length >= EPS_LEN)
+    denom = wsum + alpha
+    dlam = torch.where(
+        valid, (-(length - rest) - alpha * lam)
+        / torch.where(denom == 0.0, 1.0, denom), 0.0)
+    n = d * (1.0 / torch.where(length < EPS_LEN, 1.0, length))[:, None]
+    corr = (n * dlam[:, None])[:, None, :] * (w01 * signs)[:, :, None]
+    return x.index_add(0, flat, corr.reshape(-1, 3)), dlam
+
+
+def tet_pass_diff(x, w, flat, rest, lam, alpha, sel):
+    """One colour's volume projection written for autograd, as
+    ``edge_pass_diff``: (x', dlambda).  flat: the colour's (K, 4) vertex
+    ids row-major, flattened; sel: the corner indices (origin, left,
+    right) of the four role gradients, g_r = (left_r - origin_r) x
+    (right_r - origin_r) / 6, computed in one cross product."""
+    k = rest.shape[0]
+    p = x.index_select(0, flat).view(k, 4, 3)
+    wr = w.index_select(0, flat).view(k, 4)
+    o = p.index_select(1, sel[0])
+    left, right = p.index_select(1, sel[1]) - o, p.index_select(1, sel[2]) - o
+    c = torch.linalg.cross(left, right, dim=-1)
+    g = c * SIXTH
+    wsum = (wr * (g * g).sum(-1)).sum(1)
+    valid = (wr.sum(1) != 0.0) & (wsum >= EPS_WSUM)
+    vol = (c[:, 3] * right[:, 1]).sum(-1) / 6.0       # (b-a) x (c-a) . (d-a)
+    denom = wsum + alpha
+    dlam = torch.where(
+        valid, (-(vol - rest) - alpha * lam)
+        / torch.where(denom == 0.0, 1.0, denom), 0.0)
+    corr = g * (wr * dlam[:, None])[:, :, None]
+    return x.index_add(0, flat, corr.reshape(-1, 3)), dlam
+
+
+# tet_pass_diff's corners: g_a = (d-b) x (c-b), g_b = (c-a) x (d-a),
+# g_c = (d-a) x (b-a), g_d = (b-a) x (c-a)
+_TET_SEL = ((1, 0, 0, 0), (3, 2, 3, 1), (2, 3, 1, 2))
+
+
 def _colour_slices(groups):
     """Colour-major layout: (order, [(start, end) per colour])."""
     sizes = groups.mask.sum(axis=1).astype(np.int64)
@@ -107,15 +180,17 @@ class ColouredStep:
 
     copies: the topology is that many equal disjoint copies of one scene
     (a batch stepped as one union); each copy is hashed alone by the
-    contact stages."""
+    contact stages.  differentiable: the build for autograd (module
+    docstring)."""
 
     backend = "gather"
 
     def __init__(self, topology, params: SolverParams,
                  colliders: Optional[Colliders] = None, *, device=None,
-                 copies: int = 1):
+                 copies: int = 1, differentiable: bool = False):
         dev = self.device = resolve_device(device)
         self.params = params
+        self.differentiable = bool(differentiable)
         self.has_edges = topology.num_edges > 0
         self.has_tets = topology.num_tets > 0
         self._counts = (topology.num_edges, topology.num_tets)
@@ -151,9 +226,14 @@ class ColouredStep:
                 vslots=[i64(_vertex_slot_map(V, cm[s:e], arity))
                         for s, e in slices],
                 perm=i64(order), inv=i64(np.argsort(order)))
+            if differentiable:       # each colour's ids, row-major
+                self._fam[fam]["flat"] = [i64(cm[s:e].reshape(-1))
+                                          for s, e in slices]
+        self._signs = torch.tensor([1.0, -1.0], device=dev)
+        self._tet_sel = tuple(i64(s) for s in _TET_SEL)
         # on the card, the graph's static inputs: positions, inverse
         # masses, lambdas, the colour-major alpha tables (edges, tets)
-        self._buf = None if dev.type != "cuda" else dict(
+        self._buf = None if dev.type != "cuda" or differentiable else dict(
             x=torch.zeros((V, 3), device=dev),
             w=torch.zeros((V,), device=dev),
             lam={fam: torch.zeros((n,), device=dev) for fam, n in (
@@ -166,11 +246,18 @@ class ColouredStep:
 
     # ---- colour passes ----------------------------------------------------
 
-    # lam: this step's own colour-major tensor, updated in place; x: new
-    # tensors per colour; alpha: a colour-major (n,) table
+    # lam: this step's own colour-major tensor, updated in place, or in
+    # the differentiable build a list of one tensor per colour, each
+    # replaced; x: new tensors per colour; alpha: a colour-major (n,) table
 
     def _edges(self, x, w, lam, alpha):
         f = self._fam["edges"]
+        if self.differentiable:
+            for c, ((s, e), flat) in enumerate(zip(f["slices"], f["flat"])):
+                x, dlam = edge_pass_diff(x, w, flat, f["rest"][s:e], lam[c],
+                                         alpha[s:e], self._signs)
+                lam[c] = lam[c] + dlam
+            return x
         i0a, i1a = f["idx"]
         zero = x.new_zeros((1, 3))
         for (s, e), vslot in zip(f["slices"], f["vslots"]):
@@ -184,6 +271,12 @@ class ColouredStep:
 
     def _tets(self, x, w, lam, alpha):
         f = self._fam["tets"]
+        if self.differentiable:
+            for c, ((s, e), flat) in enumerate(zip(f["slices"], f["flat"])):
+                x, dlam = tet_pass_diff(x, w, flat, f["rest"][s:e], lam[c],
+                                        alpha[s:e], self._tet_sel)
+                lam[c] = lam[c] + dlam
+            return x
         zero = x.new_zeros((1, 3))
         for (s, e), vslot in zip(f["slices"], f["vslots"]):
             dlam, corrs = tet_dlambda(
@@ -207,10 +300,10 @@ class ColouredStep:
         if self.has_tets:
             xs = self._tets(xs, w, lam["tets"], t_alpha)
         if self.params.ground_enabled:
-            y = xs[:, 1]
-            xs = torch.stack([xs[:, 0], torch.where(
-                w != 0.0, y.clamp_min(f32(self.params.ground_y)), y),
-                xs[:, 2]], 1)
+            y, gy = xs[:, 1], f32(self.params.ground_y)
+            up = _at_least(y, gy) if self.differentiable else y.clamp_min(gy)
+            xs = torch.stack([xs[:, 0], torch.where(w != 0.0, up, y),
+                              xs[:, 2]], 1)
         return xs
 
     # ---- stepping ---------------------------------------------------------
@@ -223,31 +316,49 @@ class ColouredStep:
         public order on the step's device, as a batch of scenes with a
         compliance each passes it), ``friction``, ``gravity_override`` and
         the collider poses ``colliders_rt`` (same count as the make-time
-        set)."""
+        set).  A tensor override (0-dim, or per constraint for the
+        compliances, or (3,) for the gravity) stays a tensor through the
+        step, so the differentiable build carries its gradient."""
         p, dev = self.params, self.device
+        if not self.differentiable:
+            refuse_grad("the coloured step's non-differentiable build",
+                        state, edge_compliance, volume_compliance, friction,
+                        gravity_override, colliders_rt)
         cols = kc.runtime_colliders(self.colliders, colliders_rt, dev)
         packed = None if cols is None else kc.pack_colliders(cols, dev)
         ec, vc = (c.to(dev, torch.float32) if isinstance(c, torch.Tensor)
                   else np.float32(d if c is None else c)
                   for c, d in ((edge_compliance, p.edge_compliance),
                                (volume_compliance, p.volume_compliance)))
-        # 1 - friction: in f32 for a runtime override (a traced scalar in
-        # the JAX step), from the Python float otherwise
-        keep = (np.float32(1.0) - np.clip(np.float32(friction), 0.0, 1.0)
+        # 1 - friction: a tensor override stays one (a traced scalar in the
+        # JAX step), a float override in f32, else from the Python float
+        if isinstance(friction, torch.Tensor):
+            fr = friction.to(dev, torch.float32)
+            keep = 1.0 - torch.minimum(_at_least(fr, 0.0),
+                                       torch.ones_like(fr))
+        else:
+            keep = float(
+                np.float32(1.0) - np.clip(np.float32(friction), 0.0, 1.0)
                 if friction is not None
                 else np.float32(1.0 - min(1.0, max(0.0, p.friction))))
-        grav = (self._gravity if gravity_override is None else torch.tensor(
-            np.asarray(gravity_override, np.float32), device=dev))
+        if isinstance(gravity_override, torch.Tensor):
+            grav = gravity_override.to(dev, torch.float32)
+        else:
+            grav = (self._gravity if gravity_override is None
+                    else torch.tensor(np.asarray(gravity_override,
+                                                 np.float32), device=dev))
         ss = max(1, p.substeps)
         sdt = np.float32(dt) / np.float32(ss)
         big = sdt > np.float32(1e-12)
         inv_dt2 = np.float32(1.0) / (sdt * sdt) if big else np.float32(0.0)
         inv_dt = float(np.float32(1.0) / sdt) if big else 0.0
-        def alpha(c, fam):          # a float, or a colour-major table
+        def alpha(c, fam):   # a float, a 0-dim tensor or a colour-major table
             if not isinstance(c, torch.Tensor):
                 return float(np.maximum(c, np.float32(0.0)) * inv_dt2)
-            a = c.clamp_min(0.0) * float(inv_dt2)
-            return a[self._fam[fam]["perm"]] if fam in self._fam else a
+            a = _at_least(c, 0.0) * float(inv_dt2)
+            if a.dim() == 0 or fam not in self._fam:
+                return a
+            return a[self._fam[fam]["perm"]]
 
         e_alpha, t_alpha = alpha(ec, "edges"), alpha(vc, "tets")
         sdt = float(sdt)
@@ -264,6 +375,8 @@ class ColouredStep:
                 pub = pub[self._fam[fam]["perm"]]
                 if graphed:
                     lam[fam].copy_(pub)
+                elif self.differentiable:
+                    lam[fam] = [pub[s:e] for s, e in self._fam[fam]["slices"]]
                 else:
                     lam[fam] = pub
         if graphed:
@@ -300,8 +413,7 @@ class ColouredStep:
                 else:
                     xs = self._solve(xs, w, lam, e_alpha, t_alpha)
                 if packed is not None:
-                    xw = torch.cat([xs, w[:, None]], 1).contiguous()
-                    xs = kc.collide(xw, packed, kc.XPBD_GROUND)[:, :3]
+                    xs = kc.collide_positions(xs, w, packed, kc.XPBD_GROUND)
                     if graphed and self.contact is not None:
                         b["x"].copy_(xs)
                         xs = self._graphs.run("contact", contact)
@@ -311,14 +423,15 @@ class ColouredStep:
             vel = (xs - x) * inv_dt
             if p.ground_enabled:
                 on_g = xs[:, 1] <= f32(p.ground_y + 1e-6)
-                vx = torch.where(on_g, vel[:, 0] * float(keep), vel[:, 0])
-                vz = torch.where(on_g, vel[:, 2] * float(keep), vel[:, 2])
+                vx = torch.where(on_g, vel[:, 0] * keep, vel[:, 0])
+                vz = torch.where(on_g, vel[:, 2] * keep, vel[:, 2])
                 vy = torch.where(on_g & (vel[:, 1] < 0.0), 0.0, vel[:, 1])
                 vel = torch.stack([vx, vy, vz], 1)
             v = torch.where(pinned, 0.0, vel)
             x = torch.where(pinned, x, xs)
 
-        lam = {fam: l[self._fam[fam]["inv"]] for fam, l in lam.items()}
+        lam = {fam: (torch.cat(l) if isinstance(l, list) else l)[
+            self._fam[fam]["inv"]] for fam, l in lam.items()}
         return SimState(x=x, v=v, x_star=x, inv_mass=w,
                         edge_lambda=lam.get("edges", state.edge_lambda),
                         tet_lambda=lam.get("tets", state.tet_lambda))
@@ -331,7 +444,8 @@ class ColouredStep:
 
 def make_xpbd_step(topology, params, colliders=None, *, device=None,
                    superblocks: bool = True, edge_c=None, tet_c=None,
-                   copies: int = 1, host=None):
+                   copies: int = 1, host=None,
+                   differentiable: bool = False):
     """Build ``step(state, dt) -> state`` for the resolved backend.
 
     superblocks: the sweep backend's block width (1024-wide super-blocks,
@@ -339,8 +453,17 @@ def make_xpbd_step(topology, params, colliders=None, *, device=None,
     per-constraint compliance (public order), sweep backend only.
     copies: the topology is that many disjoint copies, each hashed alone
     by the contact stages (coloured backend only).  host: the sweep
-    backend's host make, built beforehand (``xpbd_sweep.sweep_host``)."""
-    backend = resolve_backend(topology, params, device=device)
+    backend's host make, built beforehand (``xpbd_sweep.sweep_host``).
+    differentiable: the coloured step's build for autograd ('auto' picks
+    the coloured backend; 'sweep' raises)."""
+    if differentiable and params.xpbd_backend not in ("auto", "gather",
+                                                      "scatter"):
+        raise ValueError(
+            f"differentiable=True: the xpbd backend {params.xpbd_backend!r} "
+            "runs kernels without a gradient; use 'gather', 'scatter' or "
+            "'auto' (diff.differentiable_params picks one)")
+    backend = ("gather" if differentiable
+               else resolve_backend(topology, params, device=device))
     if backend == "sweep" and copies != 1:
         raise ValueError("copies > 1 (a batch as one union) requires the "
                          "coloured backend")
@@ -364,4 +487,4 @@ def make_xpbd_step(topology, params, colliders=None, *, device=None,
         raise ValueError("superblocks=False selects the legacy sweep "
                          "kernels: it requires xpbd_backend='sweep'")
     return ColouredStep(topology, params, colliders, device=device,
-                        copies=copies)
+                        copies=copies, differentiable=differentiable)

@@ -19,6 +19,11 @@ Layout slot i holds vertex perm[i]; dead slots (perm == V: tail padding and
 component-alignment gaps) sit at the origin with w = 0 and never move.  The
 permutation and the packed lambda order are applied only at the public
 SimState boundary (``pack_state`` / ``unpack_state``).
+
+Not differentiable: the kernels write the tables in place, unseen by
+autograd, so a step handed a tensor that requires grad raises
+(``select.refuse_grad``; ``diff.make_rollout`` builds the coloured step),
+as ``jax.grad`` through the JAX sweeps' ``pallas_call`` fails.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from ..kernels import collide as kc
 from ..kernels import sweep as sw
 from ..kernels import sweep_plan as sp
 from .contact import make_contact_stage
+from .select import refuse_grad
 
 LANES = sp.LANES
 
@@ -310,6 +316,7 @@ class SweepStep:
     def pack_state(self, state: SimState) -> Carry:
         """Public state -> carry (new tensors; ``state`` is not touched and
         serves as the template for ``unpack_state``)."""
+        refuse_grad("the 'sweep' step", state)
         dev = self.device
 
         def rows(a):                       # (V, k) -> (Vpad, k), permuted
@@ -435,6 +442,8 @@ class SweepStep:
 
     def step_n(self, state: SimState, dt, n: int, edge_compliance=None,
                volume_compliance=None, colliders_rt=None) -> SimState:
+        refuse_grad("the 'sweep' step", state, edge_compliance,
+                    volume_compliance, colliders_rt)
         carry = self.pack_state(state)
         self.run_carry(carry, dt, n, edge_compliance, volume_compliance,
                        colliders_rt)

@@ -13,22 +13,22 @@ import dataclasses
 import numpy as np
 
 
-def _leaves(tree, path=""):
+def leaves(tree, path=""):
     """(path, leaf) pairs in field / key / index order; None is empty."""
     if tree is None:
         return
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         for name in tree._fields:
-            yield from _leaves(getattr(tree, name), f"{path}.{name}")
+            yield from leaves(getattr(tree, name), f"{path}.{name}")
     elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         for f in dataclasses.fields(tree):
-            yield from _leaves(getattr(tree, f.name), f"{path}.{f.name}")
+            yield from leaves(getattr(tree, f.name), f"{path}.{f.name}")
     elif isinstance(tree, dict):
         for k in sorted(tree):
-            yield from _leaves(tree[k], f"{path}[{k!r}]")
+            yield from leaves(tree[k], f"{path}[{k!r}]")
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from _leaves(v, f"{path}[{i}]")
+            yield from leaves(v, f"{path}[{i}]")
     else:
         yield path, tree
 
@@ -40,13 +40,13 @@ def _nbytes(leaf) -> int:
 
 
 def tree_bytes(tree) -> int:
-    return sum(_nbytes(leaf) for _, leaf in _leaves(tree)
+    return sum(_nbytes(leaf) for _, leaf in leaves(tree)
                if hasattr(leaf, "shape"))
 
 
 def tree_summary(tree) -> str:
     lines = []
-    for name, leaf in _leaves(tree):
+    for name, leaf in leaves(tree):
         if hasattr(leaf, "shape"):
             dtype = str(leaf.dtype).replace("torch.", "")
             lines.append(f"{name}: {dtype} {tuple(leaf.shape)}")

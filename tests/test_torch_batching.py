@@ -111,9 +111,9 @@ def test_batched_scenes_equal_solo_steps(dialect, monkeypatch):
                                                  (0.3, 0.05, 0.3))],
                               device="cpu")
     calls = []
-    plain = kc.collide
-    monkeypatch.setattr(kc, "collide",
-                        lambda xw, *a: calls.append(len(xw)) or plain(xw, *a))
+    plain = kc.collide_positions
+    monkeypatch.setattr(kc, "collide_positions",
+                        lambda p, *a: calls.append(len(p)) or plain(p, *a))
     eng = BatchedEngine(topo, params, B, colliders=box, device="cpu")
     solo = sbt.Engine(topo, params, colliders=box, device="cpu")
     for _ in range(4):

@@ -40,6 +40,7 @@ def test_scan_sees_the_whole_port():
                  "softbodysim_torch/kernels/jacobi.py",
                  "softbodysim_torch/kernels/jacobi_plan.py",
                  "softbodysim_torch/kernels/collide.py",
+                 "softbodysim_torch/diff.py",
                  "softbodysim_torch/collide/primitives.py",
                  "softbodysim_torch/core/adjacency.py",
                  "softbodysim_torch/solver/accel.py",

@@ -275,8 +275,8 @@ def test_gather_collide_through_the_collide_wrapper(monkeypatch):
     transform too; on the CPU use_pallas 'on' and 'off' give the same
     steps."""
     calls = []
-    real = kc.collide
-    monkeypatch.setattr(kc, "collide",
+    real = kc.collide_positions
+    monkeypatch.setattr(kc, "collide_positions",
                         lambda *a: calls.append(a[0].device) or real(*a))
     topo = sbt.meshes.tet_cube(**CUBE)
     on = _engine(topo, "gather", params=dict(use_pallas="on"))

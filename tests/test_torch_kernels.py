@@ -17,7 +17,14 @@ same arithmetic, no FMA on either side); whole steps on the card against
 the CPU 1e-4 over 10 steps.  The contact stages give the same bits on
 every call (their scatter sums integers) and match the CPU within 1e-6 m;
 steps with contact on match the CPU within 1e-4 m over 10 steps and a
-second card run bit for bit.
+second card run bit for bit.  The collide Function's gradient equals
+autograd through its plain version bit for bit (the backward is those
+ops); differentiable rollouts on the card match the CPU within 1e-4 m
+and their gradients within 1e-3 of the largest component (the backward's
+scatters add in the card's atomic order).  The kernel steps, and the
+coloured step's graphed build, raise when handed a tensor that requires
+grad, on either device; the jacobi plain steps differentiate as built,
+with the same bits under autograd as without.
 """
 
 import dataclasses
@@ -419,7 +426,7 @@ def test_fused_collide_pass_equals_pass_then_collide_bitwise(family,
     assert fused.launches == launches + 20
     ref = torch.empty_like(xin)
     plain(plan, xin, ref, 0.9, 1.4)
-    kc.collide_plain(ref, packed, ground)
+    ref = kc.collide_plain(ref, packed, ground)
     torch.cuda.synchronize()
     assert (want - moved).abs().max() > 1e-3            # the stage pushed
     assert torch.equal(outs, want.expand_as(outs))
@@ -526,7 +533,7 @@ def test_collide_matches_plain_on_card(size, cuda_device):
     launches = kc.collide.launches
     kc.collide(xa, packed, ground)
     assert kc.collide.launches == launches + 1
-    kc.collide_plain(xb, packed, ground)
+    xb = kc.collide_plain(xb, packed, ground)
     torch.cuda.synchronize()
     assert (xa - xw).abs().max() > 0.01
     torch.testing.assert_close(xa, xb, rtol=0, atol=1e-6)
@@ -1132,3 +1139,227 @@ def test_sweep_timeout_is_reported_to_its_own_plan(cuda_device):
     with pytest.raises(RuntimeError, match="timed out"):
         ksw.raise_on_timeouts(a.staged)
     ksw.raise_on_timeouts()                   # read and reset: none left
+
+
+# ---- gradients: the collide Function and the steps that refuse grad ------
+
+
+def _collide_inputs(device, seed=11, v=2000):
+    """A (V, 4) table over the three colliders and the ground plane, some
+    rows pinned, and the packed table."""
+    rng = np.random.default_rng(seed)
+    xw = torch.from_numpy(np.concatenate([
+        rng.uniform((-0.8, -0.1, -0.8), (0.8, 0.7, 0.8), (v, 3)),
+        rng.uniform(0.5, 2.0, (v, 1))], 1).astype(np.float32))
+    xw[::7, 3] = 0.0
+    packed, ground = _three_colliders(device)
+    return xw.to(device), packed, ground
+
+
+def _plain_vjp(xw, packed, ground, cot):
+    """Autograd through collide_plain on the table of (p, w) = xw's
+    columns: (positions, d/dp, d/dpacked) of sum(positions * cot)."""
+    pi = xw[:, :3].clone().requires_grad_(True)
+    qi = packed.detach().clone().requires_grad_(True)
+    out = kc.collide_plain(torch.cat([pi, xw[:, 3:]], 1), qi, ground)[:, :3]
+    return (out,) + torch.autograd.grad(out, (pi, qi), cot)
+
+
+def test_collide_plain_is_out_of_place():
+    xw, packed, ground = _collide_inputs("cpu")
+    before = xw.clone()
+    out = kc.collide_plain(xw, packed, ground)
+    assert torch.equal(xw, before) and (out - xw).abs().max() > 1e-2
+    assert torch.equal(out[:, 3], xw[:, 3])
+    assert torch.equal(kc.collide(xw.clone(), packed, ground), out)
+
+
+def test_collide_function_gradient_on_cpu():
+    """On the CPU the Function's forward is the plain version and its
+    backward autograd through it: the same bits both ways; the pinned
+    rows pass their gradient through."""
+    xw, packed, ground = _collide_inputs("cpu")
+    cot = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (xw.shape[0], 3)).astype(np.float32))
+    want, gx, gp = _plain_vjp(xw, packed, ground, cot)
+    xi = xw[:, :3].clone().requires_grad_(True)
+    pi = packed.clone().requires_grad_(True)
+    before = kc.collide.launches
+    out = kc.collide_positions(xi, xw[:, 3], pi, ground)
+    assert kc.collide.launches == before                  # plain on CPU
+    got = torch.autograd.grad(out, (xi, pi), cot)
+    assert torch.equal(out.detach(), want.detach())
+    assert torch.equal(got[0], gx) and torch.equal(got[1], gp)
+    pinned = xw[:, 3] == 0
+    assert torch.equal(got[0][pinned], cot[pinned])
+    assert gp.abs().max() > 0
+
+
+def _refusing_steps(device):
+    """The kernel backends ('sweep', legacy 128-wide, 'pass') and the
+    coloured step's graphed build, on a small cube."""
+    topo = sbt.meshes.tet_cube(3, 3, 3, size=0.5, center=(0.0, 0.4, 0.0))
+    box = sbt.Colliders.build([sbt.Colliders.box((0, 0.05, 0),
+                                                 (1, 0.05, 1))],
+                              device=device)
+    xp = sbt.SolverParams(substeps=2, iterations=1)
+    jp = sbt.SolverParams(dialect="jacobi", substeps=2, iterations=2)
+    steps = {
+        "sweep": sbt.make_step(topo, xp.replace(xpbd_backend="sweep"),
+                               device=device),
+        "legacy": sbt.make_step(topo, xp.replace(xpbd_backend="sweep"),
+                                device=device, superblocks=False),
+        "pass": sbt.make_step(topo, jp.replace(jacobi_backend="pass"),
+                              colliders=box, device=device),
+        "coloured": sbt.make_step(topo, xp.replace(xpbd_backend="gather"),
+                                  device=device)}
+    return topo, steps
+
+
+REFUSING = ["sweep", "legacy", "pass", "coloured"]
+
+
+def _check_refusal(step, topo, device):
+    s0 = sbt.init_state(topo, device=device)
+    v = s0.v.clone().requires_grad_(True)
+    grad_state = dataclasses.replace(s0, v=v)
+    with pytest.raises(RuntimeError, match="diff.make_rollout"):
+        step(grad_state, DT)
+    knob = ("edge_compliance" if step.params.dialect == "xpbd"
+            else "edge_stiffness")
+    with pytest.raises(RuntimeError, match="requires grad"):
+        step(s0, DT, **{knob: torch.tensor(0.5, device=device,
+                                           requires_grad=True)})
+    with torch.no_grad():                       # not under grad: it steps
+        out = step(grad_state, DT)
+    assert torch.isfinite(out.x).all()
+    assert torch.equal(step(s0, DT).x, out.x)
+
+
+def _check_jacobi_grad(device, backend):
+    """The jacobi plain step as ``make_step`` builds it, on the box
+    collider: stepped under autograd it gives what it gives under
+    torch.no_grad() -- the same bits where the backend repeats its own
+    ('segment' on the card sums with atomics, so there within 1e-5 m,
+    40x the card-against-CPU difference of phase K5) -- with the collide
+    kernel launched once per iteration on the card (none on the CPU),
+    and a finite, nonzero gradient w.r.t. the stiffness, omega and the
+    initial velocity."""
+    topo = sbt.meshes.tet_cube(3, 3, 3, size=0.5, center=(0.0, 0.4, 0.0))
+    box = sbt.Colliders.build([sbt.Colliders.box((0, 0.05, 0),
+                                                 (1, 0.05, 1))],
+                              device=device)
+    p = sbt.SolverParams(dialect="jacobi", substeps=2, iterations=2,
+                         jacobi_backend=backend)
+    step = sbt.make_step(topo, p, colliders=box, device=device)
+    s0 = sbt.init_state(topo, device=device)
+    s0 = dataclasses.replace(s0, v=torch.full_like(s0.v, -3.0))
+    with torch.no_grad():
+        want = step.step_n(s0, DT, 3).x
+    k, om = (torch.tensor(a, device=device, requires_grad=True)
+             for a in (0.7, 1.3))
+    v = s0.v.clone().requires_grad_(True)
+    before = kc.collide.launches
+    out = step.step_n(dataclasses.replace(s0, v=v), DT, 3,
+                      edge_stiffness=k, sor_omega=om).x
+    launched = kc.collide.launches - before
+    assert launched == (3 * 2 * 2 if str(device) != "cpu" else 0)
+    with torch.no_grad():
+        again = step.step_n(s0, DT, 3, edge_stiffness=0.7, sor_omega=1.3).x
+    if str(device) != "cpu" and backend == "segment":
+        torch.testing.assert_close(out.detach(), again, rtol=0, atol=1e-5)
+    else:
+        assert torch.equal(out.detach(), again)
+    assert (want - again).abs().max() > 1e-4    # the overrides are read
+    grads = torch.autograd.grad(out[:, 1].sum(), (k, om, v))
+    for g in grads:
+        assert torch.isfinite(g).all() and g.abs().max() > 0
+
+
+@pytest.mark.parametrize("backend", ["segment", "gather"])
+def test_jacobi_plain_steps_differentiate_on_cpu(backend):
+    _check_jacobi_grad("cpu", backend)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["segment", "gather"])
+def test_jacobi_plain_steps_differentiate_on_card(backend, cuda_device):
+    _check_jacobi_grad(cuda_device, backend)
+
+
+@pytest.mark.parametrize("backend", REFUSING)
+def test_kernel_steps_refuse_grad_on_cpu(backend):
+    """Each step autograd cannot follow raises when handed a tensor that
+    requires grad (on the CPU through its plain versions), and steps as
+    before under torch.no_grad()."""
+    topo, steps = _refusing_steps("cpu")
+    _check_refusal(steps[backend], topo, "cpu")
+
+
+@pytest.mark.cuda
+def test_collide_function_gradient_on_card(cuda_device):
+    """On the card the Function's forward is the kernel (one launch, into
+    a fresh table, within 1e-6 of the plain version) and its gradient is
+    autograd through collide_plain on the same inputs, bit for bit."""
+    xw, packed, ground = _collide_inputs(cuda_device)
+    cot = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (xw.shape[0], 3)).astype(np.float32)).to(cuda_device)
+    want, gx, gp = _plain_vjp(xw, packed, ground, cot)
+    xi = xw[:, :3].clone().requires_grad_(True)
+    pi = packed.clone().requires_grad_(True)
+    before = kc.collide.launches
+    out = kc.collide_positions(xi, xw[:, 3], pi, ground)
+    assert kc.collide.launches == before + 1
+    assert torch.equal(xi.detach(), xw[:, :3])           # not in place
+    got = torch.autograd.grad(out, (xi, pi), cot)
+    torch.testing.assert_close(out.detach(), want.detach(), rtol=0,
+                               atol=1e-6)
+    assert torch.equal(got[0], gx) and torch.equal(got[1], gp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", REFUSING)
+def test_kernel_steps_refuse_grad_on_card(backend, cuda_device):
+    topo, steps = _refusing_steps(cuda_device)
+    _check_refusal(steps[backend], topo, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dialect", ["xpbd", "jacobi"])
+def test_diff_rollout_on_card_matches_cpu(dialect, cuda_device):
+    """A differentiable rollout thrown onto a box collider (the collide
+    kernel in the forward) on the card against the CPU: trajectory
+    1e-4 m; the gradients of sum(trajectory * W) w.r.t. the edge
+    compliance (where alpha is twice the median inverse mass: the
+    trajectory is sensitive to it) or stiffness and the initial velocity
+    1e-3 of their largest component."""
+    from softbodysim_torch import diff
+
+    topo = sbt.meshes.tet_cube(3, 3, 3, size=0.5, center=(0.0, 0.4, 0.0))
+    knob = "edge_compliance" if dialect == "xpbd" else "edge_stiffness"
+    params = sbt.SolverParams(dialect=dialect, substeps=2, iterations=2)
+    w0 = sbt.init_state(topo, device="cpu").inv_mass
+    value = (float(2.0 * w0.median() * (DT / 2) ** 2) if dialect == "xpbd"
+             else 0.5)
+    weights = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (4, topo.num_particles, 3)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        box = sbt.Colliders.build([sbt.Colliders.box((0, 0.05, 0),
+                                                     (1, 0.05, 1))],
+                                  device=dev)
+        r = diff.make_rollout(topo, params, dt=DT, nsteps=4, colliders=box,
+                              device=dev)
+        k = torch.tensor(value, device=dev, requires_grad=True)
+        s0 = sbt.init_state(topo, device=dev)
+        v = torch.full_like(s0.v, -2.0).requires_grad_(True)
+        before = kc.collide.launches
+        tr = r(dataclasses.replace(s0, v=v), {knob: k})
+        grads = torch.autograd.grad((tr * weights.to(dev)).sum(), (k, v))
+        if dev != "cpu":
+            assert kc.collide.launches > before
+        out[str(dev)] = [tr.detach().cpu()] + [g.cpu() for g in grads]
+    (a, *ga), (b, *gb) = out.values()
+    torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+    for x, y in zip(gb, ga):
+        assert (x - y).abs().max() <= 1e-3 * y.abs().max()
