@@ -30,8 +30,9 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    E = 163,842, T = 81,920; the centre in every tet, so a heavy vertex)
    on the floor box with jacobi_backend="auto" -> 'pass': 10 steps, each
    against the same Engine on the CPU's 'gather' backend within 1e-4 m or
-   ten times the CPU's own spread at that step ('gather' against
-   'segment'), printed per step; then three warm 20-step windows.
+   ten times the CPU's own spread at that step (that Engine against one
+   started one ulp away), printed per step; then three warm 20-step
+   windows.
 5. XPBD legacy path on the same cube: Engine(xpbd, 8 substeps, 1
    iteration, superblocks=False, a box just under the body) -> the sweep
    backend on the 128-wide legacy plans (SweepStep, carry API); print the
@@ -121,8 +122,9 @@ G-H. Contact and the mesh pipeline, after phase F and before any profiler
       native library (host seconds of voxelizing and snapping), round-
       tripped through io/topology_store.py, dropped on the floor box for
       20 steps on jacobi 'auto', each step against the CPU as phase 4's
-      ball (1e-4 m, or ten times the CPU's own gather / segment spread
-      once the landing makes it larger).
+      ball (1e-4 m, or ten times the CPU's own spread, its 'gather'
+      Engine against one started one ulp away, once the landing makes it
+      larger).
    A {"contact": {...}} line sums up G and H (with the card's name and
    power limit).
 I-J. Serving, the CLI and the render layer, after phase H and before any
@@ -186,13 +188,38 @@ K. Differentiable simulation (``softbodysim_torch/diff.py``), after phase J
       against the CPU's.
    A {"diff": {...}} line sums up K (with the card's name and power
    limit).  Every tensor checked is on the card.
+L. The kernel-sharded steps (``Engine(mesh=...)``), after phase K and
+   before any profiler runs: phase 3's north star on the sweep kernels
+   (8 x 1) and phase 4's Jacobi configuration on the passes' accumulate
+   mode (2 x 6, the floor box), 'auto' picking the sharded kernel steps,
+   each at D = 1 (an NCCL group of one, in this process) and D = 2 (two
+   spawned ranks on a gloo group sharing the card, the collectives
+   staged through pinned host memory): each run SHARDED_STEPS steps
+   twice from the rest shape with seeded velocities N(0, 0.5) m/s (the
+   same bits), every rank the same bits, then three timed windows; each
+   run's constraint correction (its largest distance from the ballistic
+   move, and at D = 2 the same over the ghost windows' rows) at least 10
+   times each position limit it is held to; xpbd D = 1 against the
+   single-device sweep step within 1e-6 m, jacobi D = 1 and D = 2
+   against the single-device pass step within 1e-5 m, xpbd D = 2 one
+   step with the kernels against the same ranks with the plain versions
+   (1e-4 m, 1e-3 of the largest lambda); 'segment' (phase 4's
+   configuration) twice from the same start, the same bits. Prints per
+   path and D the ms/step, the ghost and export windows and bytes per
+   exchange per rank, the host's share of the windows inside collectives
+   and the transport, and a {"sharded": {...}} line (with the card's
+   name and power limit). The D = 2 ranks share one card: not a
+   scale-out figure.
 11. Every kernel at north-star shapes against its plain PyTorch version
    on the card, from one predicted, perturbed state (the Jacobi ones with
-   a box collider and the ground); time both.  Each Jacobi pass prints
-   its tile plan (build time, tiles, largest tile, shared memory, heavy
-   vertices, CTAs per SM) and must give the same bits on 20 launches from
-   one snapshot; each pass with the collide stage fused (the floor box, a
-   sphere and a capsule, the body moved into them) must equal the pass
+   a box collider and the ground); time both.  The passes' accumulate
+   mode (the sums and counts, unapplied) against its plain version
+   within 1e-5 m, counts equal, the same bits on 20 launches.  Each
+   Jacobi pass prints its tile plan (build time, tiles, largest tile,
+   shared memory, heavy vertices, CTAs per SM) and must give the same
+   bits on 20 launches from one snapshot; each pass with the collide
+   stage fused (the floor box, a sphere and a capsule, the body moved
+   into them) must equal the pass
    followed by the stand-alone collide kernel bit for bit on 20 launches.
    Each sweep kernel also
    runs its plan's dependency schedule on the card's Q CTAs and on one
@@ -230,6 +257,7 @@ function -- null: none does); the last line is {"ok": true, "device":
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import math
 import os
@@ -260,7 +288,8 @@ FP32_OPS_PER_S = 67e12
 #   within 1e-4 m (~0.5% of an edge's rest length 0.0213 m); lambdas
 #   within 1e-3 of the largest |lambda| of the sweep.
 # - Jacobi passes: one pass from one snapshot; the two sides differ in fp32
-#   summation order (the tile's slot order against atomics) and rounding
+#   summation (the tile's slot order against the plain version's int64
+#   fixed-point sum, rounded once) and rounding
 #   (the kernel computes as the TPU kernel: the f32 sixth multiplied,
 #   lambda = (-k C) / w), a few ulp at |x| ~ 2 m: within 1e-5 m, and the
 #   per-particle counts equal.
@@ -300,9 +329,10 @@ LEDGE_GAP = 0.05
 # the centre vertex), ~6k colour passes per step of plain tensor ops
 COLOURED_STEPS = 24
 # tet_ball(6, 0.3) from 0.55 m over the floor box: it meets the box in
-# step 5; from step 8 on, as its sliver tets land, two summation orders
-# part by millimetres (the CPU's own 'gather' and 'segment' Engines, which
-# phase 4 runs beside the card at every step: ball_tol)
+# step 5; from step 8 on, as its sliver tets land, two runs that differ in
+# the last bits part by millimetres (the CPU's 'gather' Engine and one
+# started one ulp away, which phase 4 runs beside the card at every step:
+# cpu_spread_engines, ball_tol)
 BALL_STEPS = 10
 
 
@@ -991,6 +1021,7 @@ def compare_jacobi_kernels(sbt, topo, device) -> dict:
             events_ms(lambda: plain(plan, xin, xb, k, om), 5), nb, ops)
         report(name, res[name])
     res.update(compare_fused_passes(sbt, params, passes, xin, device))
+    res.update(compare_accumulate(passes, xin, device))
 
     # collide: the body moved down into the floor box and through the
     # ground plane, so both stages push
@@ -1020,6 +1051,51 @@ def compare_jacobi_kernels(sbt, topo, device) -> dict:
         events_ms(lambda: kc.collide_plain(xb, packed, ground), 5), nb,
         (11 + 80 * packed.shape[0]) * free)
     report("collide", res["collide"])
+    return res
+
+
+def compare_accumulate(passes, xin, device) -> dict:
+    """Phase 11: the passes' accumulate-only mode (the kernel-sharded
+    Jacobi step's) against its plain version (``edge_jacobi_deltas`` /
+    ``tet_jacobi_deltas``) on phase 11's snapshot: sums within 1e-5 m,
+    counts equal, PASS_LAUNCHES launches bit for bit.  Its data: the
+    pass's reads and one 16-byte row written per vertex."""
+    from softbodysim_torch.kernels import jacobi as kj
+
+    kit = {"jacobi_edge_pass": (kj.jacobi_edge_accumulate,
+                                kj.jacobi_edge_accumulate_plain),
+           "jacobi_tet_pass": (kj.jacobi_tet_accumulate,
+                               kj.jacobi_tet_accumulate_plain)}
+    res = {}
+    for name, plan, k, _, _, nb, ops in passes:
+        fn, plain = kit[name]
+        kd = torch.tensor(k, dtype=torch.float32, device=device)
+        got, want = torch.empty_like(xin), torch.empty_like(xin)
+        fn(plan, xin, got, kd)
+        plain(plan, xin, want, k)
+        outs = torch.empty((PASS_LAUNCHES,) + tuple(xin.shape),
+                           device=device)
+        for i in range(PASS_LAUNCHES):
+            fn(plan, xin, outs[i], kd)
+        torch.cuda.synchronize()
+        err = (got[:, :3] - want[:, :3]).abs().max().item()
+        same_cnt = torch.equal(got[:, 3], want[:, 3])
+        same = bool((outs == got).all().item())
+        big = got[:, :3].abs().max().item()
+        print(f"{fn.__name__}: max|sum_kernel - sum_plain| {err:.3e} m (tol "
+              f"{PASS_TOL}), counts equal {same_cnt}, largest |sum| "
+              f"{big:.3e} m; {PASS_LAUNCHES} launches bitwise equal {same}",
+              flush=True)
+        if not (err <= PASS_TOL and same_cnt and same and big > 0.0):
+            raise AssertionError(f"{fn.__name__}: disagrees with its plain "
+                                 "version, or its launches differ")
+        # the snapshot read and the table written are both (V, 4): nb
+        # counts them already; no apply (7 flops per vertex fewer)
+        res[fn.__name__] = result(
+            err, kernel_ms(lambda: fn(plan, xin, got, kd), 20),
+            events_ms(lambda: plain(plan, xin, want, k), 5), nb,
+            ops - 7 * xin.shape[0])
+        report(fn.__name__, res[fn.__name__])
     return res
 
 
@@ -1192,7 +1268,8 @@ def jacobi_ball_path(sbt, device) -> tuple:
     floor box with jacobi_backend="auto" -> 'pass', its centre a heavy
     vertex; BALL_STEPS steps, each held against the same Engine on the
     CPU's 'gather' backend at ``ball_tol`` of the CPU's own spread (its
-    'gather' against its 'segment' Engine at that step); then timed;
+    'gather' Engine against a second one started one ulp away, every
+    coordinate moved to the next float32 up, at that step); then timed;
     (ms/step, the warm Engine)."""
     t0 = time.perf_counter()
     topo = sbt.meshes.tet_ball(6, 0.3, center=(0.0, 0.55, 0.0))
@@ -1219,17 +1296,14 @@ def jacobi_ball_path(sbt, device) -> tuple:
           f"{time.perf_counter() - t0:.2f} s (incl. set-up), launches "
           f"{counts}", flush=True)
     t0 = time.perf_counter()
-    refs = {b: sbt.Engine(topo, params.replace(jacobi_backend=b),
-                          colliders=floor_box(sbt, "cpu"), device="cpu")
-            for b in ("gather", "segment")}
+    refs = cpu_spread_engines(sbt, topo, params)
     rows = []
     for n, pos in enumerate(cards, 1):
-        want, other = (refs[b].run(1, DT).positions()
-                       for b in ("gather", "segment"))
+        want, other = (r.run(1, DT).positions() for r in refs)
         err = float(np.abs(pos - want).max())
         spread = float(np.abs(want - other).max())
         rows.append(dict(step=n, card_vs_gather=err,
-                         gather_vs_segment=spread, tol=ball_tol(spread),
+                         gather_vs_one_ulp=spread, tol=ball_tol(spread),
                          finite=bool(np.isfinite(pos).all())))
     free = eng.state.inv_mass.cpu().numpy() != 0
     min_y = float(cards[-1][free, 1].min())
@@ -1251,11 +1325,27 @@ def jacobi_ball_path(sbt, device) -> tuple:
     return timed_window(eng, 20), eng
 
 
+def cpu_spread_engines(sbt, topo, params) -> list:
+    """Two CPU 'gather' Engines on the floor box, the second started one
+    ulp away (every coordinate at the next float32 up): how far they part
+    at a step is the CPU's own spread there, the sensitivity of the run
+    to rounding-level differences such as two summation orders."""
+    refs = [sbt.Engine(topo, params.replace(jacobi_backend="gather"),
+                       colliders=floor_box(sbt, "cpu"), device="cpu")
+            for _ in range(2)]
+    s0 = refs[1].state
+    x = torch.nextafter(s0.x, torch.full_like(s0.x, math.inf))
+    refs[1].state = sbt.SimState(
+        x=x, v=s0.v, x_star=x, inv_mass=s0.inv_mass,
+        edge_lambda=s0.edge_lambda, tet_lambda=s0.tet_lambda)
+    return refs
+
+
 def ball_tol(spread: float) -> float:
     """The card's tolerance against the CPU 'gather' Engine at a step of
-    tet_ball(6) where the CPU's 'gather' and 'segment' Engines part by
-    ``spread``: ORACLE_TOL, or ten times the CPU's own spread where that
-    is larger."""
+    tet_ball(6) where that Engine and a second one started one ulp away
+    part by ``spread``: ORACLE_TOL, or ten times the CPU's own spread
+    where that is larger."""
     return max(ORACLE_TOL, 10.0 * spread + 1e-6)
 
 
@@ -2190,7 +2280,7 @@ def mesh_pipeline_path(sbt, device) -> dict:
     topology round-tripped through topology_store, dropped on the floor
     box for 20 steps on 'auto' (-> 'gather'), each step against the same
     Engine on the CPU at ``ball_tol``: 1e-4 m until the ball lands, then
-    ten times the CPU's own spread ('gather' against 'segment'), which the
+    ten times the CPU's own spread (``cpu_spread_engines``), which the
     landing turns from 1e-7 to centimetres (the voxel ball's flat bottom
     layer meets the box at once, and which rows the push-out catches in a
     substep turns on the last bits)."""
@@ -2228,16 +2318,14 @@ def mesh_pipeline_path(sbt, device) -> dict:
     reset_counts()
     card = sbt.Engine(back, params, colliders=floor_box(sbt, device),
                       device=device)
-    refs = [sbt.Engine(back, params.replace(jacobi_backend=b),
-                       colliders=floor_box(sbt, "cpu"), device="cpu")
-            for b in ("gather", "segment")]
+    refs = cpu_spread_engines(sbt, back, params)
     rows = []
     for n in range(1, 21):
         pos = card.run(1, DT).positions()
         want, other = (e.run(1, DT).positions() for e in refs)
         spread = float(np.abs(want - other).max())
         rows.append(dict(step=n, card_vs_cpu=float(np.abs(pos - want).max()),
-                         gather_vs_segment=spread, tol=ball_tol(spread)))
+                         gather_vs_one_ulp=spread, tol=ball_tol(spread)))
     counts = read_counts()
     min_y = float(card.positions()[:, 1].min())
     out = {"V": back.num_particles, "T": back.num_tets,
@@ -3128,6 +3216,300 @@ def diff_card_vs_cpu(sbt, device) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase L: the kernel-sharded steps on torch.distributed
+# --------------------------------------------------------------------------
+
+# steps of each sharded path's checked run, and of its timed windows
+SHARDED_STEPS = 4
+# XPBD at D = 2 with the sweep kernels against the same ranks with their
+# plain versions: steps compared
+SHARDED_PLAIN_STEPS = 1
+# the sharded xpbd at D = 1 against the single-device sweep step (it runs
+# the same plans and kernels in the same order: bit for bit in fact)
+SHARDED_X_TOL = 1e-6
+# every phase L run starts from the rest shape with velocities N(0, this)
+# m/s drawn from SEED, so the constraints work from the first substep
+SHARDED_V_SIGMA = 0.5
+# a run's constraint correction -- its largest distance from the
+# ballistic move, over all rows and, at D > 1, over the rows of the
+# ghost windows -- must reach this many times each position limit it is
+# held to, so that a dropped or doubled halo contribution would fail
+SHARDED_WORK = 10.0
+
+
+def sharded_params(sbt) -> dict:
+    """Phase L's two paths: the north star on the sweep kernels (8 x 1)
+    and phase 4's Jacobi configuration on the pass kernels (2 x 6, the
+    floor box); 'auto' picks the kernel-sharded step at this size."""
+    return {"xpbd": (sbt.SolverParams(dialect="xpbd", substeps=8,
+                                      iterations=1), False),
+            "jacobi": (sbt.SolverParams(**JACOBI), True)}
+
+
+def halo_info(step) -> dict:
+    """Per family: this rank's ghost windows, the windows it exports, and
+    the bytes one exchange sends out and takes back per rank (the padded
+    all-gathers: exported rows x, y, z, w out; ghost deltas back, three
+    floats for xpbd, four for jacobi's sums and counts)."""
+    out = {}
+    back = 12 if step.backend == "sweep" else 16
+    for name, f in step.fams.items():
+        h = f.halo
+        exports = f.fam.exports[step.axis.index]
+        out[name] = {"ghost_windows": h.g,
+                     "export_windows": int(len(exports)),
+                     "bytes_out": h.emax * 128 * 16 if h.active else 0,
+                     "bytes_back": h.gmax * 128 * back if h.active else 0}
+    return out
+
+
+def run_sharded(sbt, topo, device, mesh, label: str) -> dict:
+    """One rank's phase L: each path's Engine(mesh=...) driven with the
+    launch counts set to 0 just before and read just after, run
+    SHARDED_STEPS steps twice from the same start (the same bits), then
+    timed in three windows; the host's seconds inside collectives over the
+    windows' wall time."""
+    import torch_sharded_ranks as tr
+
+    out = {}
+    for name, (params, boxed) in sharded_params(sbt).items():
+        cols = floor_box(sbt, device) if boxed else None
+        t0 = time.perf_counter()
+        eng = sbt.Engine(topo, params, colliders=cols, mesh=mesh,
+                         device=device)
+        step = eng._raw_step
+        build_s = time.perf_counter() - t0
+        s0 = eng.state = tr.kicked(eng, SEED, SHARDED_V_SIGMA)
+        reset_counts()
+        eng.run(SHARDED_STEPS, DT)
+        eng.block()
+        counts = read_counts()
+        first = eng.state
+        eng.state = s0
+        eng.run(SHARDED_STEPS, DT)
+        again = eng.state
+        same = all(torch.equal(getattr(first, f), getattr(again, f))
+                   for f in ("x", "v", "edge_lambda", "tet_lambda"))
+        ax = step.axis
+        ax.host_seconds = 0.0
+        t1 = time.perf_counter()
+        ms = window_ms(f"phase L {label} {name}",
+                       lambda n: eng.run(n, DT), SHARDED_STEPS)
+        share = ax.host_seconds / (time.perf_counter() - t1)
+        out[name] = {"x": first.x.cpu().numpy(),
+                     "edge_lambda": first.edge_lambda.cpu().numpy(),
+                     "same_bits": same, "counts": counts, "ms": ms,
+                     "build_s": build_s, "collective_host_share": share,
+                     "transport": ax.transport(first.x),
+                     "backend": eng.backend, "halo": halo_info(step),
+                     "halo_vertices": (
+                         tr.halo_vertices(step, topo.num_particles)
+                         if ax.size > 1 else None)}
+        if name == "xpbd" and ax.size > 1:
+            out[name].update(plain_check(eng, s0, params))
+    return out
+
+
+def plain_check(eng, s0, params) -> dict:
+    """XPBD at D > 1: SHARDED_PLAIN_STEPS steps with the sweep kernels
+    against the same ranks with the plain versions of the w fill and the
+    sweeps (run on the card's tensors; the plain run launches none of
+    the three kernels).  A block adds at most the family's multiplicity
+    cap (2 edges, 3 tets) of contributions to a vertex, so the two sides'
+    sums rarely differ in order, and then by an ulp."""
+    import torch_sharded_ranks as tr
+
+    from softbodysim_torch.kernels import sweep as ksw
+
+    eng.state = s0
+    eng.run(SHARDED_PLAIN_STEPS, DT)
+    kern = eng.state
+    saved = ksw.w_fill, ksw.edge_sweep, ksw.tet_sweep
+    reset_counts()
+    ksw.w_fill, ksw.edge_sweep, ksw.tet_sweep = (
+        ksw.w_fill_plain, ksw.edge_sweep_plain, ksw.tet_sweep_plain)
+    try:
+        eng.state = s0
+        eng.run(SHARDED_PLAIN_STEPS, DT)
+        plain = eng.state
+    finally:
+        ksw.w_fill, ksw.edge_sweep, ksw.tet_sweep = saved
+    launched = read_counts()              # the wrappers' counts, restored
+    if any(launched[n] for n in ("w_fill", "edge_sweep", "tet_sweep")):
+        raise AssertionError(f"phase L: the plain run launched kernels: "
+                             f"{launched}")
+    x_err = (kern.x - plain.x).abs().max().item()
+    lam_rel = max(((getattr(kern, f) - getattr(plain, f)).abs().max()
+                   / getattr(plain, f).abs().max()).item()
+                  for f in ("edge_lambda", "tet_lambda"))
+    work = np.abs(plain.x.double().cpu().numpy()
+                  - tr.ballistic(s0, params, SHARDED_PLAIN_STEPS)).max()
+    lam_max = min(getattr(plain, f).abs().max().item()
+                  for f in ("edge_lambda", "tet_lambda"))
+    return {"plain_x_err": x_err, "plain_lam_rel": lam_rel,
+            "plain_work": float(work), "plain_lam_max": lam_max}
+
+
+def sharded_rank(rank, world):
+    """A spawned rank of phase L's D > 1 run: every rank on cuda:0, a gloo
+    group whose collectives go through pinned host memory."""
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import softbodysim_torch as sbt
+    from softbodysim_torch.parallel import make_mesh
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    topo = sbt.meshes.tet_cube(**NORTH_STAR)
+    return run_sharded(sbt, topo, device, make_mesh(device_type="cuda"),
+                       f"D={world} rank {rank}")
+
+
+def sharded_path(sbt, topo, device, card: str) -> tuple:
+    """Phase L: the kernel-sharded steps at full width.  D = 1 on NCCL in
+    this process, then D = 2 as two spawned ranks sharing the card (gloo);
+    each against the single-device step, each run twice equal bit for bit;
+    'segment' twice bit for bit.  Returns (the D = 1 run's launch counts,
+    a summary)."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch_sharded_ranks as tr
+
+    from softbodysim_torch.parallel import make_mesh, spawn
+
+    t0 = time.perf_counter()
+    # the single-device references: SHARDED_STEPS steps from the start,
+    # and the ballistic move from it
+    ref, free_move = {}, {}
+    for name, (params, boxed) in sharded_params(sbt).items():
+        e = sbt.Engine(topo, params, device=device,
+                       colliders=floor_box(sbt, device) if boxed else None)
+        e.state = tr.kicked(e, SEED, SHARDED_V_SIGMA)
+        free_move[name] = tr.ballistic(e.state, params, SHARDED_STEPS)
+        e.run(SHARDED_STEPS, DT)
+        ref[name] = e.positions()
+        del e
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            d1 = run_sharded(sbt, topo, device, make_mesh(), "D=1")
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    d2 = spawn(sharded_rank, 2, backend="gloo", timeout_s=600.0)
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"phase L: {what}")
+
+    summary = {"card": card, "steps": SHARDED_STEPS}
+    for D, runs in ((1, [d1]), (2, d2)):
+        for name in ("xpbd", "jacobi"):
+            r = runs[0][name]
+            tol = (SHARDED_X_TOL if name == "xpbd" else PASS_TOL)
+            err = float(np.abs(r["x"] - ref[name]).max())
+            moved = np.abs(r["x"] - free_move[name]).max(axis=1)
+            work = float(moved.max())
+            halo_work = (float(moved[r["halo_vertices"]].max()) if D > 1
+                         else None)
+            # the largest position limit this run is held to
+            need = SHARDED_WORK * (X_TOL if name == "xpbd" and D > 1
+                                   else tol)
+            ranks_same = all(np.array_equal(q[name]["x"], r["x"])
+                             for q in runs[1:])
+            line = {"ms_per_step": [q[name]["ms"] for q in runs],
+                    "build_s": [q[name]["build_s"] for q in runs],
+                    "collective_host_share": [
+                        q[name]["collective_host_share"] for q in runs],
+                    "transport": r["transport"], "backend": r["backend"],
+                    "halo_per_rank": [q[name]["halo"] for q in runs],
+                    "same_bits_twice": [q[name]["same_bits"] for q in runs],
+                    "ranks_same_bits": ranks_same,
+                    "err_vs_single_device": err,
+                    "constraint_correction_m": work,
+                    "halo_rows_correction_m": halo_work,
+                    "correction_needed_m": need}
+            print(f"phase L {name} D={D}: {json.dumps(line)} on {card}",
+                  flush=True)
+            check(all(line["same_bits_twice"]) and ranks_same,
+                  f"{name} D={D}: a second run or another rank differs")
+            check(np.isfinite(r["x"]).all(), f"{name} D={D}: non-finite")
+            check(work >= need and (halo_work is None or halo_work >= need),
+                  f"{name} D={D}: the constraints corrected {work} m "
+                  f"({halo_work} m on the halo's rows), under {need} m: "
+                  "the checks would not see a wrong halo")
+            if name == "jacobi" or D == 1:
+                check(err <= tol, f"{name} D={D} against the single-device "
+                      f"step: {err} > {tol}")
+            if name == "xpbd" and D > 1:
+                pe = max(q[name]["plain_x_err"] for q in runs)
+                pl = max(q[name]["plain_lam_rel"] for q in runs)
+                pw = min(q[name]["plain_work"] for q in runs)
+                lm = min(q[name]["plain_lam_max"] for q in runs)
+                line.update(plain_x_err=pe, plain_lam_rel=pl, plain_work=pw,
+                            plain_lam_max=lm)
+                print(f"phase L xpbd D={D}: {SHARDED_PLAIN_STEPS} step with "
+                      f"the kernels against the plain versions: positions "
+                      f"{pe:.3e} m (tol {X_TOL}), lambdas {pl:.3e} of the "
+                      f"largest (tol {LAM_REL_TOL}); constraint correction "
+                      f"{pw:.3e} m (needed {SHARDED_WORK * X_TOL:.1e}), "
+                      f"largest |lambda| {lm:.3e}", flush=True)
+                check(pe <= X_TOL and pl <= LAM_REL_TOL,
+                      f"xpbd D={D}: kernels and plain versions disagree")
+                check(pw >= SHARDED_WORK * X_TOL and lm > 0.0,
+                      f"xpbd D={D}: the plain check's run did no "
+                      f"constraint work ({pw} m)")
+            summary[f"{name}_D{D}"] = line
+    counts = {name: d1[name]["counts"] for name in ("xpbd", "jacobi")}
+    check_launched(counts["xpbd"], ("w_fill", "edge_sweep", "tet_sweep"),
+                   "phase L xpbd D=1")
+    check_launched(counts["jacobi"], ("jacobi_edge_accumulate",
+                                      "jacobi_tet_accumulate", "collide"),
+                   "phase L jacobi D=1")
+    for q in d2:
+        check_launched(q["jacobi"]["counts"], (
+            "jacobi_edge_accumulate", "jacobi_tet_accumulate", "collide"),
+            "phase L jacobi D=2")
+        check_launched(q["xpbd"]["counts"], ("w_fill", "edge_sweep",
+                                             "tet_sweep"), "phase L xpbd D=2")
+    summary["segment"] = segment_repeat(sbt, topo, device)
+    summary["seconds"] = time.perf_counter() - t0
+    merged = collections.Counter()
+    for c in counts.values():
+        merged.update(c)
+    return dict(merged), summary
+
+
+def segment_repeat(sbt, topo, device) -> dict:
+    """Phase 4's configuration forced to 'segment', SHARDED_STEPS steps
+    twice from phase L's start: the same bits (its sums are int64 fixed
+    point)."""
+    import torch_sharded_ranks as tr
+
+    params = sbt.SolverParams(**{**JACOBI, "jacobi_backend": "segment"})
+    eng = sbt.Engine(topo, params, colliders=floor_box(sbt, device),
+                     device=device)
+    s0 = eng.state = tr.kicked(eng, SEED, SHARDED_V_SIGMA)
+    eng.run(SHARDED_STEPS, DT)
+    a = eng.state
+    eng.state = s0
+    eng.run(SHARDED_STEPS, DT)
+    b = eng.state
+    same = torch.equal(a.x, b.x) and torch.equal(a.v, b.v)
+    work = float(np.abs(a.x.double().cpu().numpy()
+                        - tr.ballistic(s0, params, SHARDED_STEPS)).max())
+    print(f"phase L 'segment' twice, {SHARDED_STEPS} steps: bit for bit "
+          f"{same}, constraint correction {work:.3e} m", flush=True)
+    if not same:
+        raise AssertionError("phase L: two 'segment' runs differ")
+    if not work >= SHARDED_WORK * PASS_TOL:
+        raise AssertionError(f"phase L: 'segment' corrected {work} m")
+    return {"same_bits": same, "constraint_correction_m": work}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -3236,6 +3618,9 @@ def main() -> int:
     grads["seconds"] = time.perf_counter() - t0
     grads["card"] = card
     print(json.dumps({"diff": grads}), flush=True)
+    # the kernel-sharded steps, timed before any profiler runs
+    sh_counts, sharded = sharded_path(sbt, topo, device, card)
+    print(json.dumps({"sharded": sharded}), flush=True)
 
     kres = compare_sweep_kernels(sbt, ksw, topo, device)
     kres.update(compare_legacy_kernels(sbt, ksw, topo, device))
@@ -3260,8 +3645,8 @@ def main() -> int:
         print(f"profile of {label}: {time.perf_counter() - t0:.2f} s",
               flush=True)
         # the profiler names the kernels inside the graph replays
-        for kern in ("tile_pass_kernel<2, false>",
-                     "tile_pass_kernel<4, true>"):
+        for kern in ("tile_pass_kernel<2, false, false>",
+                     "tile_pass_kernel<4, true, false>"):
             if eng is j_eng and kern not in prof["device"]:
                 raise AssertionError(f"the jacobi profile names no {kern}")
     diff_profile(sbt, topo, device, grads)
@@ -3290,7 +3675,12 @@ def main() -> int:
         ("legacy_edge_sweep", "sweep.cu",
          "softbodysim_tpu/kernels/sweep.py:825", l_counts),
         ("legacy_tet_sweep", "sweep.cu",
-         "softbodysim_tpu/kernels/sweep.py:894", l_counts))
+         "softbodysim_tpu/kernels/sweep.py:894", l_counts),
+        # the passes' accumulate-only mode (make_jacobi_pass apply=False)
+        ("jacobi_edge_accumulate", "jacobi.cu",
+         "softbodysim_tpu/kernels/jacobi.py:71", sh_counts),
+        ("jacobi_tet_accumulate", "jacobi.cu",
+         "softbodysim_tpu/kernels/jacobi.py:158", sh_counts))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + cu,
          "replaces": replaces, "launches": counts[name], **kres[name]}

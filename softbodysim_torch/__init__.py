@@ -44,6 +44,11 @@ plain steps' differentiable build, the collide kernel behind a
                    dt=1 / 60, fit_params=("edge_compliance",),
                    state0=state0, device="cuda")
 
+One scene across the ranks of a ``torch.distributed`` process group: the
+kernel-sharded steps behind ``Engine(topo, params, mesh=make_mesh())``
+(``parallel/sharding.py``; the sweep kernels per rank for xpbd, the Jacobi
+passes' accumulate mode for jacobi).
+
 Entry points run on the card (``cuda:0``) unless given ``device="cpu"``,
 where the kernels' plain PyTorch versions run instead (the tests).
 """
@@ -57,6 +62,7 @@ from .api.dynamic import DynamicMergedWorld
 from .api.engine import Engine
 from .api.scenes import PartitionedSceneEngine, Scene
 from .api.world import World, Body
+from .parallel.sharding import make_mesh
 from . import diff
 
 __version__ = "0.1.0"
@@ -64,5 +70,6 @@ __version__ = "0.1.0"
 __all__ = [
     "Colliders", "SimState", "SolverParams", "init_state", "Topology",
     "build_topology", "meshes", "make_step", "Engine", "World", "Body",
-    "DynamicMergedWorld", "Scene", "PartitionedSceneEngine", "diff",
+    "DynamicMergedWorld", "Scene", "PartitionedSceneEngine", "make_mesh",
+    "diff",
 ]

@@ -12,6 +12,15 @@ Colliders (both dialects, every backend) are runtime poses: the engine's
 current set goes to every step, so ``update_colliders`` moves them without
 rebuilding the step (the reference rebuilds its collider snapshot every
 step, SoftBodyManager.cs:239-261).
+
+``mesh`` (``parallel.sharding.make_mesh``: a ``DeviceMesh`` over a
+``torch.distributed`` process group) splits the scene across the ranks of
+its "model" dimension (``parallel.sharding.make_sharded_step``): the same
+step / run / positions API, each rank keeping its own rows on its device
+between calls (the carry), the public state gathered on access.  Every
+rank builds the Engine with the same arguments and makes the same calls
+in the same order (reading the state or the positions gathers across the
+ranks).
 """
 
 from __future__ import annotations
@@ -29,7 +38,8 @@ from ..solver import make_step
 
 class Engine:
     """Single-scene simulation engine on one device (default: the card;
-    ``device="cpu"`` runs the kernels' plain PyTorch versions)."""
+    ``device="cpu"`` runs the kernels' plain PyTorch versions), or on
+    each rank of ``mesh`` (module docstring)."""
 
     _carry = None
     _state_stale = False
@@ -47,18 +57,20 @@ class Engine:
         stiffness for jacobi, public order); for xpbd ``superblocks``
         (False: the legacy 128-wide sweep kernels); for jacobi
         ``local_to_world`` / ``world_to_local``.  ``colliders`` work on
-        both dialects and every backend; ``mesh`` is not ported yet and
-        raises."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device meshes are not ported yet (ROADMAP.md queue 1, "
-                "'Multi-device')")
+        both dialects and every backend.  ``mesh``: split the scene across
+        its ranks (module docstring; the sharded steps take no
+        ``solver_kw``)."""
+        if mesh is not None and solver_kw:
+            raise ValueError(f"the sharded steps take no {sorted(solver_kw)}"
+                             " (per-constraint tables, legacy plans and "
+                             "body transforms are single-device)")
         if inv_mass_mode is None:
             # server dialect: tet-volume inverse masses; in-engine: density
             inv_mass_mode = "tet" if params.dialect == "xpbd" else "density"
         self.device = resolve_device(device)
         self.topology = topology
         self.params = params
+        self.mesh = mesh
         self.colliders = (None if colliders is None
                           else colliders.to(self.device))
         self._inv_mass_mode = inv_mass_mode
@@ -66,8 +78,17 @@ class Engine:
             topology, pinned=pinned, inv_mass_mode=inv_mass_mode,
             density=density, pin_top_layer=pin_top_layer,
             device=self.device)
-        self._raw_step = make_step(topology, params, self.colliders,
-                                   device=self.device, **solver_kw)
+        self._raw_step = self._make_step(params, **solver_kw)
+
+    def _make_step(self, params, **solver_kw):
+        if self.mesh is None:
+            return make_step(self.topology, params, self.colliders,
+                             device=self.device, **solver_kw)
+        from ..parallel.sharding import make_sharded_step
+
+        return make_sharded_step(self.topology, params, self.mesh,
+                                 colliders=self.colliders,
+                                 device=self.device)
 
     # ---- lazy public state over the carry backends -----------------------
 
@@ -189,6 +210,5 @@ class Engine:
         self.colliders = (None if colliders is None
                           else colliders.to(self.device))
         self.state = self.state       # materialize, then drop the old carry
-        self._raw_step = make_step(self.topology, params, self.colliders,
-                                   device=self.device, **solver_kw)
+        self._raw_step = self._make_step(params, **solver_kw)
         return self

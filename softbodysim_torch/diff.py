@@ -89,8 +89,9 @@ def make_rollout(topology, params: SolverParams, *, dt: float, nsteps: int,
     dict (keys from ``FITTABLE[params.dialect]``, and ``gravity_override``
     for xpbd; values floats or tensors).
 
-    ``mesh`` (the JAX function's distributed rollout) is not ported yet:
-    it raises NotImplementedError."""
+    ``mesh`` (the JAX function's distributed rollout; the sharded steps
+    have no gradient yet) is not ported yet: it raises
+    NotImplementedError."""
     if mesh is not None:
         raise NotImplementedError(
             "make_rollout(mesh=...) is not ported yet (ROADMAP.md queue 1, "

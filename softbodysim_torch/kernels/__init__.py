@@ -29,7 +29,8 @@ def _wrappers():
     return (sweep.w_fill, sweep.edge_sweep, sweep.tet_sweep,
             jacobi.jacobi_edge_pass, jacobi.jacobi_tet_pass,
             jacobi.jacobi_edge_pass_collide, jacobi.jacobi_tet_pass_collide,
-            collide.collide, sweep.legacy_edge_sweep, sweep.legacy_tet_sweep)
+            collide.collide, sweep.legacy_edge_sweep, sweep.legacy_tet_sweep,
+            jacobi.jacobi_edge_accumulate, jacobi.jacobi_tet_accumulate)
 
 
 def count_launch(fn) -> None:

@@ -127,7 +127,7 @@ def load() -> ctypes.CDLL:
         "sbs_jacobi_ctas_per_sm": [i, i],
         "sbs_jacobi_pass": [i, p, p, p, p, p, p, p, p, p, p, i, i, p, p, p,
                             p, p, p, p, p, p, i, p, p, i, i, f, f, f, f, f,
-                            f, f, p],
+                            f, f, i, p],
         # collide.cu
         "sbs_collide": [p, i, p, i, i, f, f, f, f, f, f, f, p],
     }

@@ -5,10 +5,13 @@
 //   tile_pass_kernel<2, *>  <- _edge_pass_kernel (:71, pallas_call :360;
 //                              with _scatter_acc4 :44, _apply_epilogue :58)
 //   tile_pass_kernel<4, *>  <- _tet_pass_kernel  (:158, pallas_call :360)
-// and, in its <arity, true> variants run as the last pass of an iteration,
-// softbodysim_tpu/kernels/collide.py::_collide_kernel (:136, pallas_call
-// :220), which the JAX pass step calls once per iteration after both
-// passes (softbodysim_tpu/solver/jacobi_pallas.py:187-203).
+// and, in its <arity, true, false> variants run as the last pass of an
+// iteration, softbodysim_tpu/kernels/collide.py::_collide_kernel (:136,
+// pallas_call :220), which the JAX pass step calls once per iteration after
+// both passes (softbodysim_tpu/solver/jacobi_pallas.py:187-203).  The
+// <arity, false, true> variants are the same TPU kernels built with
+// apply=False (make_jacobi_pass :421-461, FINAL = last and apply at :362):
+// the accumulate-only mode of the kernel-sharded steps.
 //
 // Semantics (the reference's K_EdgeGather / K_VolumeGather -> K_ApplyDelta,
 // and the JAX package's solver/jacobi.py segment formulation): every
@@ -55,7 +58,19 @@
 // the ticket for the next launch (and for a graph's next replay).  Still
 // no atomics on positions, and every sum in a fixed order.
 //
-// The fused collide stage (<arity, true>).  Each row of xout is written
+// The accumulate-only mode (<arity, false, true>).  Where a pass would
+// apply, it stores the row's sum and count instead, (sum x, sum y, sum z,
+// count) as one float4, into a table of the rows of xin: the owned runs in
+// step 3, the heavy vertices in the last CTA.  Every row of xin is owned by
+// a tile or heavy, so every row of the table is written (a row in no
+// constraint gets zeros).  The kernel-sharded Jacobi step
+// (solver/jacobi_pass_sharded.py) runs it on a rank's own rows and the
+// ghost copies of other ranks' rows, sends the ghost rows' sums home and
+// applies there.  The same summation order as the apply mode, so the same
+// bits on every launch.  It takes no collide stage (refused at build time:
+// the stage runs after the apply, on the home rank).
+//
+// The fused collide stage (<arity, true, false>).  Each row of xout is written
 // once, by one CTA, from registers; the collide stage is per row, so it
 // runs there before the store: after apply_delta, each free row gets the
 // ground plane and then the colliders in order (collide_math.cuh, the
@@ -233,8 +248,9 @@ __device__ __forceinline__ float4 run_sum(const float4* slots, int s0,
 // constraint one short4 (edges: rows a, b, slots a, b) or two (tets:
 // rows, then slots); rest / ktab per listed constraint.  kCollide: each
 // row this launch writes gets the collide stage (ground, then the ncols
-// colliders of cols) before its store.
-template <int kArity, bool kCollide>
+// colliders of cols) before its store.  kAccumulate: xout is the table of
+// sums and counts, and nothing is applied (omegap and cnt_out unread).
+template <int kArity, bool kCollide, bool kAccumulate>
 __global__ void __launch_bounds__(threads_of(kArity))
 tile_pass_kernel(const float4* __restrict__ xin, float4* __restrict__ xout,
                  const int* __restrict__ row_ptr,
@@ -249,8 +265,10 @@ tile_pass_kernel(const float4* __restrict__ xin, float4* __restrict__ xout,
                  const float* __restrict__ omegap,
                  int* __restrict__ cnt_out, int smem4, Heavy hv,
                  const float* __restrict__ cols, int ncols, Ground ground) {
+  static_assert(!(kCollide && kAccumulate),
+                "the accumulate-only mode has no collide stage");
   constexpr int kThreads = threads_of(kArity);
-  const float k = *kp, omega = *omegap;
+  const float k = *kp, omega = kAccumulate ? 0.f : *omegap;
   constexpr int kRec = kArity / 2;            // short4 per record
   extern __shared__ float4 smem[];
   const int t = blockIdx.x;
@@ -301,6 +319,10 @@ tile_pass_kernel(const float4* __restrict__ xin, float4* __restrict__ xout,
       const float4 d = run_sum(slots, s0, slot_end[o0 + o]);
       const int cnt = (int)d.w;
       const int g = rows[r0 + o];
+      if (kAccumulate) {
+        xout[g] = d;
+        continue;
+      }
       float4 out = apply_delta(srows[o], d.x, d.y, d.z, cnt, omega);
       if (kCollide) out = collide_row(out, ground, tab, ncols);
       xout[g] = out;
@@ -352,10 +374,14 @@ tile_pass_kernel(const float4* __restrict__ xin, float4* __restrict__ xout,
     }
     if (j < hv.n) {
       const int g = hv.verts[j];
-      float4 out = apply_delta(xin[g], sx, sy, sz, cnt, omega);
-      if (kCollide) out = collide_row(out, ground, tab, ncols);
-      xout[g] = out;
-      if (cnt_out != nullptr) cnt_out[g] = cnt;
+      if (kAccumulate) {
+        xout[g] = make_float4(sx, sy, sz, (float)cnt);
+      } else {
+        float4 out = apply_delta(xin[g], sx, sy, sz, cnt, omega);
+        if (kCollide) out = collide_row(out, ground, tab, ncols);
+        xout[g] = out;
+        if (cnt_out != nullptr) cnt_out[g] = cnt;
+      }
     }
   }
   if (threadIdx.x == 0) *hv.ticket = 0u;       // ready for the next launch
@@ -367,21 +393,29 @@ using PassKernel = void (*)(const float4*, float4*, const int*, const int*,
                             const float*, const float*, int*, int, Heavy,
                             const float*, int, Ground);
 
-PassKernel kernel_of(int arity, bool collide) {
-  switch (arity * 2 + (collide ? 1 : 0)) {
-    case 4: return tile_pass_kernel<2, false>;
-    case 5: return tile_pass_kernel<2, true>;
-    case 8: return tile_pass_kernel<4, false>;
-    case 9: return tile_pass_kernel<4, true>;
+// A variant's index: arity * 4 + collide + 2 * accumulate.
+constexpr int variant(int arity, bool collide, bool accumulate) {
+  return arity * 4 + (collide ? 1 : 0) + (accumulate ? 2 : 0);
+}
+
+// nullptr for a variant that does not exist (accumulate with collide).
+PassKernel kernel_of(int arity, bool collide, bool accumulate) {
+  switch (variant(arity, collide, accumulate)) {
+    case variant(2, false, false): return tile_pass_kernel<2, false, false>;
+    case variant(2, true, false): return tile_pass_kernel<2, true, false>;
+    case variant(2, false, true): return tile_pass_kernel<2, false, true>;
+    case variant(4, false, false): return tile_pass_kernel<4, false, false>;
+    case variant(4, true, false): return tile_pass_kernel<4, true, false>;
+    case variant(4, false, true): return tile_pass_kernel<4, false, true>;
     default: return nullptr;
   }
 }
 
 // Allow the kernel the card's whole opt-in shared memory, once per
 // variant.
-cudaError_t opt_in(int arity, bool collide) {
-  static bool done[10] = {};
-  const int v = arity * 2 + (collide ? 1 : 0);
+cudaError_t opt_in(int arity, bool collide, bool accumulate) {
+  static bool done[variant(4, true, true) + 1] = {};
+  const int v = variant(arity, collide, accumulate);
   if (done[v]) return cudaSuccess;
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -389,7 +423,7 @@ cudaError_t opt_in(int arity, bool collide) {
     err = cudaDeviceGetAttribute(
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel_of(arity, collide),
+    err = cudaFuncSetAttribute(kernel_of(arity, collide, accumulate),
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                optin);
   done[v] = err == cudaSuccess;
@@ -405,12 +439,13 @@ extern "C" {
 // one SM holds at once with smem bytes of shared memory each (0: not even
 // one); a negative CUDA error code on failure.
 int sbs_jacobi_ctas_per_sm(int arity, int smem) {
-  if (kernel_of(arity, false) == nullptr) return -(int)cudaErrorInvalidValue;
-  cudaError_t err = opt_in(arity, false);
+  if (kernel_of(arity, false, false) == nullptr)
+    return -(int)cudaErrorInvalidValue;
+  cudaError_t err = opt_in(arity, false, false);
   int per_sm = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel_of(arity, false), threads_of(arity), smem);
+        &per_sm, kernel_of(arity, false, false), threads_of(arity), smem);
   return err == cudaSuccess ? per_sm : -(int)err;
 }
 
@@ -419,9 +454,11 @@ int sbs_jacobi_ctas_per_sm(int arity, int smem) {
 // f32 each in device memory.  The heavy tables (nheavy may be 0) as in
 // struct Heavy.  cols != nullptr: the collide stage is fused into the pass
 // (ncols rows of 12 f32, staged from byte smem on: smem + 48 * ncols
-// bytes in all; the ground plane as given).  Launches on the given
-// stream, does not synchronise, and returns cudaGetLastError() so that a
-// refused launch is reported to the caller.
+// bytes in all; the ground plane as given).  accumulate != 0: the
+// accumulate-only mode, xout the (rows, 4) table of sums and counts (omega
+// and cnt_out unread; refused with cols).  Launches on the given stream,
+// does not synchronise, and returns cudaGetLastError() so that a refused
+// launch is reported to the caller.
 int sbs_jacobi_pass(int arity, const void* xin, void* xout,
                     const int* row_ptr, const int* rows, const int* own_ptr,
                     const short* slot_end, const int* con_ptr,
@@ -432,12 +469,12 @@ int sbs_jacobi_pass(int arity, const void* xin, void* xout,
                     void* partials, const int* heavy, const int* heavy_ptr,
                     int nheavy, unsigned* ticket, const float* cols, int ncols,
                     int ground_on, float gpx, float gpy, float gpz,
-                    float gnx, float gny, float gnz, float r,
+                    float gnx, float gny, float gnz, float r, int accumulate,
                     void* stream) {
   const bool collide = cols != nullptr;
-  PassKernel kernel = kernel_of(arity, collide);
+  PassKernel kernel = kernel_of(arity, collide, accumulate != 0);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = opt_in(arity, collide);
+  const cudaError_t err = opt_in(arity, collide, accumulate != 0);
   if (err != cudaSuccess) return (int)err;
   const Heavy hv = {part_ptr, part_end, part_dst, (float4*)partials,
                     heavy, heavy_ptr, nheavy, ticket};

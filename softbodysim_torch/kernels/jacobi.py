@@ -10,6 +10,13 @@ each with its plain PyTorch version beside it.
   _collide_kernel``, here ``collide.collide``) fused into them: each row
   the pass writes gets the ground plane and the colliders before its
   store.  The pass step runs them as the last pass of each iteration.
+* ``jacobi_edge_accumulate`` / ``jacobi_tet_accumulate`` -- the passes'
+  accumulate-only mode (the TPU kernels built with ``apply=False``,
+  ``make_jacobi_pass`` :421-461): per row the raw (delta xyz, count) as one
+  float4, nothing applied.  The kernel-sharded Jacobi step
+  (``solver/jacobi_pass_sharded.py``) runs them over a rank's own and
+  ghost rows and applies after the ghost rows' sums are sent home.  Their
+  plain versions are ``edge_jacobi_deltas`` / ``tet_jacobi_deltas``.
 
 All are one launch of one CTA per spatial vertex tile
 (``jacobi_plan.tile_plan``; the plans below hold each family's tiles on
@@ -22,8 +29,9 @@ Both read the snapshot ``xin`` and write ``xout``, two distinct (V, 4) f32
 tables of rows x, y, z, inverse mass in public vertex order; the caller
 swaps them (a pass that wrote the table it reads would be Gauss-Seidel).
 The plain versions are the segment formulation: the per-constraint math
-defined here (``edge_jacobi_deltas``, ``tet_jacobi_deltas``, each an
-``index_add_`` into (delta, count)) then ``apply_delta``; the solver's
+defined here (``edge_jacobi_deltas``, ``tet_jacobi_deltas``, each a
+scatter into (delta, count), the deltas in int64 fixed point so a run
+repeats its bits on the card too) then ``apply_delta``; the solver's
 segment and gather backends import that math from here.  A wrapper runs its
 plain version for tables on the CPU and launches its kernel for tables on
 a CUDA device, raising if the launch is refused; ``<wrapper>.launches``
@@ -43,6 +51,7 @@ import numpy as np
 import torch
 
 from ..collide.primitives import cross3, dot3
+from ..core.fixed import index_sum
 from ..core.state import f32, resolve_device
 from . import collide as kc
 from . import count_launch, jacobi_plan
@@ -65,11 +74,12 @@ def edge_jacobi_deltas(x_pred, inv_mass, edges, edge_rest, stiffness, nv):
     len^2 < 1e-18; lambda = -k * ((len - rest) / w); contribution
     n * (lambda * wa) to a and -n * (lambda * wb) to b; each valid edge
     counts for both endpoints (SoftBodySolver.cs:408-429).  ``stiffness``:
-    a scalar or an (E,) tensor."""
-    a, b = edges[:, 0], edges[:, 1]
-    wa, wb = inv_mass[a], inv_mass[b]
-    w = wa + wb
-    d = x_pred[a] - x_pred[b]
+    a scalar or an (E,) tensor.  The deltas are summed in int64 fixed
+    point (``core/fixed.py``): the same bits on every run, on either
+    device."""
+    ends, ws = x_pred[edges], inv_mass[edges]          # (E, 2, 3), (E, 2)
+    w = ws[:, 0] + ws[:, 1]
+    d = ends[:, 0] - ends[:, 1]
     len2 = dot3(d, d)
     valid = (w != 0.0) & (len2 >= EPS_LEN2)
     length = torch.sqrt(len2.clamp_min(EPS_SQRT))
@@ -77,13 +87,13 @@ def edge_jacobi_deltas(x_pred, inv_mass, edges, edge_rest, stiffness, nv):
     lam = torch.where(
         valid, -stiffness * ((length - edge_rest)
                              / torch.where(w == 0.0, 1.0, w)), 0.0)
-    delta = torch.zeros_like(x_pred)
-    delta.index_add_(0, a, n * (lam * wa)[:, None])
-    delta.index_add_(0, b, -n * (lam * wb)[:, None])
+    contrib = n[:, None, :] * (lam[:, None] * ws)[:, :, None]
+    contrib[:, 1].neg_()                      # -n * (lambda * wb), exactly
+    delta = index_sum(nv, ((edges.reshape(-1), contrib.reshape(-1, 3)),))
     vi = valid.to(torch.int32)
     cnt = torch.zeros(nv, dtype=torch.int32, device=x_pred.device)
-    cnt.index_add_(0, a, vi)
-    cnt.index_add_(0, b, vi)
+    cnt.index_add_(0, edges[:, 0], vi)
+    cnt.index_add_(0, edges[:, 1], vi)
     return delta, cnt
 
 
@@ -97,11 +107,11 @@ def _tet_gradients(pa, pb, pc, pd):
     return (ga, gb, gc, gd), vol
 
 
-def tet_lambda(x_pred, inv_mass, tets, tet_rest_vol, stiffness):
-    """(gradients, corner inverse masses, lambda, valid) per tet."""
-    corners = [tets[:, r] for r in range(4)]
-    ws = [inv_mass[c] for c in corners]
-    gs, vol = _tet_gradients(*(x_pred[c] for c in corners))
+def tet_lambda(ps, ws, tet_rest_vol, stiffness):
+    """(role gradients, lambda, valid) per tet from its four corners'
+    positions ``ps`` (each (T, 3)) and inverse masses ``ws`` (each
+    (T,))."""
+    gs, vol = _tet_gradients(*ps)
     wsum = ws[0] * dot3(gs[0], gs[0])
     for r in range(1, 4):
         wsum = wsum + ws[r] * dot3(gs[r], gs[r])
@@ -109,20 +119,23 @@ def tet_lambda(x_pred, inv_mass, tets, tet_rest_vol, stiffness):
     lam = torch.where(
         valid, -stiffness * ((vol - tet_rest_vol)
                              / torch.where(wsum == 0.0, 1.0, wsum)), 0.0)
-    return corners, gs, ws, lam, valid
+    return gs, lam, valid
 
 
 def tet_jacobi_deltas(x_pred, inv_mass, tets, tet_rest_vol, stiffness, nv):
     """Per-particle (delta, count) from all volume constraints: role
     gradient * (lambda * w_role); a corner counts only when its tet is
-    valid and its w != 0 (SoftBodySolver.cs:461-515)."""
-    corners, gs, ws, lam, valid = tet_lambda(x_pred, inv_mass, tets,
-                                              tet_rest_vol, stiffness)
-    delta = torch.zeros_like(x_pred)
+    valid and its w != 0 (SoftBodySolver.cs:461-515).  The deltas are
+    summed in int64 fixed point, as ``edge_jacobi_deltas``'."""
+    ws = inv_mass[tets]                       # each corner gathered at once
+    gs, lam, valid = tet_lambda(x_pred[tets].unbind(1), ws.unbind(1),
+                                tet_rest_vol, stiffness)
+    contrib = torch.stack(gs, 1) * (lam[:, None] * ws)[:, :, None]
+    idx = tets.reshape(-1)
+    delta = index_sum(nv, ((idx, contrib.reshape(-1, 3)),))
     cnt = torch.zeros(nv, dtype=torch.int32, device=x_pred.device)
-    for c, g, w in zip(corners, gs, ws):
-        delta.index_add_(0, c, g * (lam * w)[:, None])
-        cnt.index_add_(0, c, (valid & (w != 0.0)).to(torch.int32))
+    cnt.index_add_(0, idx, (valid[:, None] & (ws != 0.0)).to(
+        torch.int32).reshape(-1))
     return delta, cnt
 
 
@@ -375,9 +388,10 @@ def jacobi_edge_pass_plain(plan: EdgePassPlan, xin: torch.Tensor,
 
 
 def _launch(plan, arity, xin, xout, k, omega, cnt_out, name, packed=None,
-            ground=None) -> None:
+            ground=None, accumulate=False) -> None:
     """One launch of the tiled pass kernel: one CTA per tile; with
-    ``packed`` (and ``ground``) the variant with the collide stage."""
+    ``packed`` (and ``ground``) the variant with the collide stage; with
+    ``accumulate`` the accumulate-only variant (xout: the sums, counts)."""
     t, dev = plan.tiles, xin.device
     ground = ground or kc.XPBD_GROUND
     (gpx, gpy, gpz), (gnx, gny, gnz) = ground.point, ground.normal
@@ -391,7 +405,7 @@ def _launch(plan, arity, xin, xout, k, omega, cnt_out, name, packed=None,
         _ptr(t.heavy_ptr), t.heavy.shape[0], _ptr(t.ticket),
         _ptr(packed), 0 if packed is None else packed.shape[0],
         int(ground.enabled), f(gpx), f(gpy), f(gpz), f(gnx), f(gny), f(gnz),
-        f(ground.radius), _stream(dev))
+        f(ground.radius), int(accumulate), _stream(dev))
     _raise_on(rc, name)
 
 
@@ -487,3 +501,62 @@ def jacobi_tet_pass_collide(plan: TetPassPlan, xin: torch.Tensor,
 
 
 jacobi_tet_pass_collide.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Accumulate-only mode (the kernel-sharded Jacobi step's)
+# --------------------------------------------------------------------------
+
+def jacobi_edge_accumulate_plain(plan: EdgePassPlan, xin: torch.Tensor,
+                                 acc: torch.Tensor, k) -> None:
+    x, w = xin[:, :3], xin[:, 3]
+    delta, cnt = edge_jacobi_deltas(x, w, plan.edges.long(), plan.rest,
+                                    _stiffness(plan, k), plan.num_particles)
+    acc[:, :3] = delta
+    acc[:, 3] = cnt.to(torch.float32)
+
+
+def jacobi_tet_accumulate_plain(plan: TetPassPlan, xin: torch.Tensor,
+                                acc: torch.Tensor, k) -> None:
+    x, w = xin[:, :3], xin[:, 3]
+    delta, cnt = tet_jacobi_deltas(x, w, plan.tets.long(), plan.rest,
+                                   _stiffness(plan, k), plan.num_particles)
+    acc[:, :3] = delta
+    acc[:, 3] = cnt.to(torch.float32)
+
+
+def _accumulate(plan, arity, fn, plain, xin, acc, k) -> None:
+    """Checks, then ``plain`` for tables on the CPU or one launch of the
+    accumulate-only kernel of ``arity``, counted as ``fn``'s."""
+    dev = _check_pass(plan, xin, acc, None)
+    (_check_edge_plan if arity == 2 else _check_tet_plan)(plan, dev)
+    k = _scalar(k, "k", dev)
+    if dev.type == "cpu":
+        plain(plan, xin, acc, k)
+        return
+    _launch(plan, arity, xin, acc, k, None, None, fn.__name__,
+            accumulate=True)
+    count_launch(fn)
+
+
+def jacobi_edge_accumulate(plan: EdgePassPlan, xin: torch.Tensor,
+                           acc: torch.Tensor, k) -> None:
+    """The distance gather from snapshot xin, unapplied: acc (V, 4) gets
+    per row (delta xyz, count as a float), as ``edge_jacobi_deltas``
+    gives them.  k as for ``jacobi_edge_pass``."""
+    _accumulate(plan, 2, jacobi_edge_accumulate,
+                jacobi_edge_accumulate_plain, xin, acc, k)
+
+
+jacobi_edge_accumulate.launches = 0
+
+
+def jacobi_tet_accumulate(plan: TetPassPlan, xin: torch.Tensor,
+                          acc: torch.Tensor, k) -> None:
+    """The volume gather from snapshot xin, unapplied, as
+    ``jacobi_edge_accumulate``."""
+    _accumulate(plan, 4, jacobi_tet_accumulate,
+                jacobi_tet_accumulate_plain, xin, acc, k)
+
+
+jacobi_tet_accumulate.launches = 0

@@ -20,4 +20,10 @@ def make_step(topology, params, colliders=None, *, device=None, **kw):
     raise ValueError(f"unknown dialect {params.dialect!r}")
 
 
-__all__ = ["make_step", "make_xpbd_step", "make_jacobi_step"]
+# after make_step: the sharded steps import ``parallel``, whose batching
+# module imports make_step from here
+from .jacobi_pass_sharded import make_jacobi_pass_sharded_step  # noqa: E402
+from .xpbd_sweep_sharded import make_xpbd_sweep_sharded_step  # noqa: E402
+
+__all__ = ["make_step", "make_xpbd_step", "make_jacobi_step",
+           "make_xpbd_sweep_sharded_step", "make_jacobi_pass_sharded_step"]

@@ -8,7 +8,9 @@ particle's delta is the sum of its constraints' contributions, applied as
 x += (omega / count) * delta (SoftBodySolver.cs:349-527).
 
 Backends (``params.jacobi_backend``, resolved by ``select.resolve_backend``):
-  "segment" -- per-constraint math, ``index_add_`` into (delta, count);
+  "segment" -- per-constraint math, scattered into (delta, count) (the
+               deltas summed in int64 fixed point, ``core/fixed.py``:
+               the same bits on every run, on either device);
   "gather"  -- per-vertex reduction over degree-bucketed padded rows (the
                reference's K_EdgeGather / K_VolumeGather walk);
   "pass"    -- the CUDA pass kernels on a (V, 4) table
@@ -75,8 +77,10 @@ def edge_gather_deltas(x_pred, inv_mass, other, rest_p, mask, stiffness,
 def tet_phase_a(x_pred, inv_mass, tets, tet_rest_vol, stiffness):
     """Per-tet gradients times lambda, role-major: (glam (4T, 3) with
     glam[r*T + t] = g_r(t) * lambda(t), valid (T,))."""
-    _, gs, _, lam, valid = tet_lambda(x_pred, inv_mass, tets, tet_rest_vol,
-                                      stiffness)
+    corners = [tets[:, r] for r in range(4)]
+    gs, lam, valid = tet_lambda([x_pred[c] for c in corners],
+                                [inv_mass[c] for c in corners],
+                                tet_rest_vol, stiffness)
     return torch.cat([g * lam[:, None] for g in gs]), valid
 
 

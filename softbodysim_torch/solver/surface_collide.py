@@ -18,12 +18,14 @@ Both sides move; a particle's own triangles are masked out by corner id.
 
 Deterministic corner reactions: the reactions scatter onto the triangles'
 corners, which a float scatter-add on the card sums in a different order
-on every run.  Here each reaction is rounded to a multiple of 2^-40 m and
-the three corner scatters add int64 values (``index_add_``); integer
-addition is associative, so the sums are the same bits in any order, run
-to run, graphed or eager, on either device.  The rounding (< 1e-12 m per
-reaction) is far below float32's resolution of the positions, and the
-total is rounded once to float32 and added to the particle-side sum.
+on every run.  Here each reaction is cut (toward zero) to a multiple of
+2^-40 m and the three corner scatters add int64 values
+(``core/fixed.py::FixedSum``); integer addition is associative, so the
+sums are the same bits in any order, run to run, graphed or eager, on
+either device.  The cut (< 1e-12 m per reaction) is far below float32's
+resolution of the positions, and the total is rounded once to float32 and
+added to the particle-side sum; a reaction that is not finite makes its
+corner's sum NaN, as a float scatter would.
 Integers carry no gradient: when gradients are on and the positions or
 inverse masses require grad, the stage also sums the reactions as floats
 and adds ``flt - flt.detach()``, exactly 0 in the forward, so the value
@@ -42,13 +44,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.fixed import FixedSum
 from .spatial import (_cell_hash, _next_pow2, _query_rows, cells_of,
                       device_scalar, dropped, neighbour_windows,
                       offset_chunks)
-
-# corner reactions are summed as integers in units of 2^-FIXED_BITS m
-FIXED_BITS = 40
-
 
 def closest_point_triangle(p, a, b, c):
     """Closest point on triangle(s) to point(s), all (..., 3); returns
@@ -114,12 +113,6 @@ def _closest_point(p, a, b, c):
     return closest, (u, v, w)
 
 
-def _fixed(x: torch.Tensor) -> torch.Tensor:
-    """x (float32) in int64 units of 2^-FIXED_BITS (x * 2^40 is exact in
-    float32, and so is rounding it to an integer)."""
-    return torch.round(x * float(2 ** FIXED_BITS)).to(torch.int64)
-
-
 def surface_collision_deltas(p, inv_mass, tris, thickness, cell_size,
                              max_per_cell, return_overflow: bool = False,
                              own_offset=None, own_count: int = None,
@@ -171,9 +164,8 @@ def surface_collision_deltas(p, inv_mass, tris, thickness, cell_size,
     slot = torch.arange(m, device=dev)
     h = float(thickness)
     vertex_deltas = torch.zeros_like(pq)
-    fixed = torch.zeros((n, 3), dtype=torch.int64, device=dev)
-    flt = (p.new_zeros((n, 3)) if torch.is_grad_enabled()
-           and (p.requires_grad or inv_mass.requires_grad) else None)
+    corner_sum = FixedSum(n, 3, dev, grad=torch.is_grad_enabled() and (
+        p.requires_grad or inv_mass.requires_grad))
     for lo, hi in offset_chunks(len(own_ids), m):
         cand_pos = start[:, lo:hi, None] + slot            # (Nq, k, M)
         valid = (cand_pos < end[:, lo:hi, None]) & ~dup[:, lo:hi, None]
@@ -200,14 +192,8 @@ def surface_collision_deltas(p, inv_mass, tris, thickness, cell_size,
             (1, 2))
         for k in range(3):            # corner reactions, as integers
             contrib = -nrm * (s * (wk[k] * bary[k]))[..., None]
-            fixed.index_add_(0, ta[..., k].reshape(-1),
-                             _fixed(contrib.reshape(-1, 3)))
-            if flt is not None:
-                flt = flt.index_add(0, ta[..., k].reshape(-1),
-                                    contrib.reshape(-1, 3))
-    corners = fixed.to(torch.float32) * float(2.0 ** -FIXED_BITS)
-    if flt is not None:
-        corners = corners + (flt - flt.detach())
+            corner_sum.add(ta[..., k].reshape(-1), contrib.reshape(-1, 3))
+    corners = corner_sum.total()
 
     if own_offset is not None:
         if return_overflow:

@@ -176,13 +176,15 @@ def test_cuda_without_card_raises(monkeypatch):
 @pytest.mark.parametrize("case", [
     "colliders", "bfloat16", "gather", "auto_small", "jacobi", "mesh",
     "self_collision", "colliders_rt"])
-def test_unported_features_raise(case):
+def test_unported_features_raise(case, tmp_path):
     """What is not ported raises NotImplementedError pointing at ROADMAP.md.
     Cases ported since ("colliders" on the sweep backend, the coloured
     "gather" backend, "auto" on a small scene, the "jacobi" dialect with
     self collision and "self_collision" on the sweep backend) now step; a
     runtime collider set without a make-time template ("colliders_rt") is
-    refused."""
+    refused.  "mesh" is ported for the kernel-sharded steps: on a gloo
+    group of one it steps to the single-device Engine's bits, and the
+    vertex-sharded modes ('auto' on a small scene) still raise."""
     topo = _topo()
     kw = {}
     params = _sweep_params()
@@ -198,7 +200,7 @@ def test_unported_features_raise(case):
     elif case == "jacobi":            # with self collision
         params = params.replace(dialect="jacobi", self_collision=True)
     elif case == "mesh":
-        kw["mesh"] = object()
+        return _check_mesh_of_one(topo, params, tmp_path)
     elif case == "self_collision":
         params = params.replace(self_collision=True)
     if case in ("colliders", "gather", "auto_small", "jacobi",
@@ -219,6 +221,26 @@ def test_unported_features_raise(case):
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sbt.Engine(topo, params, device="cpu", **kw)
+
+
+def _check_mesh_of_one(topo, params, tmp_path):
+    import torch.distributed as dist
+
+    from softbodysim_torch.parallel import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        eng = sbt.Engine(topo, params, device="cpu", mesh=mesh).run(2, DT)
+        ref = sbt.Engine(topo, params, device="cpu").run(2, DT)
+        assert eng.backend == "sweep"
+        assert np.array_equal(eng.positions(), ref.positions())
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            sbt.Engine(topo, params.replace(xpbd_backend="auto"),
+                       device="cpu", mesh=mesh)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_backend_selection(monkeypatch):

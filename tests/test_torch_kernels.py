@@ -947,9 +947,8 @@ def test_contact_stage_same_bits_on_card(cuda_device):
 def test_contact_steps_on_card_match_cpu(dialect, backend, cuda_device):
     """Two bodies that collide, contact on, each backend (the coloured and
     pass steps graphed on the card): 10 steps within 1e-4 m of the CPU, and
-    a second card run equal bit for bit ('segment' sums its constraint
-    deltas with index_add_, float atomics on the card, so its two runs are
-    held to the same 1e-4 m on positions instead)."""
+    a second card run equal bit for bit ('segment' included: it sums its
+    constraint deltas in int64 fixed point, core/fixed.py)."""
     topo = _contact_pair()
     base = (dict(dialect="xpbd", substeps=2, iterations=3)
             if dialect == "xpbd" else
@@ -964,12 +963,217 @@ def test_contact_steps_on_card_match_cpu(dialect, backend, cuda_device):
         cpu.step(DT)
     np.testing.assert_allclose(a.positions(), cpu.positions(), rtol=0,
                                atol=1e-4)
-    if backend == "segment":
-        np.testing.assert_allclose(a.positions(), b.positions(), rtol=0,
-                                   atol=1e-4)
-        return
     for f in ("x", "v", "edge_lambda", "tet_lambda"):
         assert torch.equal(getattr(a.state, f), getattr(b.state, f)), f
+
+
+# --------------------------------------------------------------------------
+# The accumulate-only passes, 'segment' bit for bit, the sharded steps
+# --------------------------------------------------------------------------
+
+def _accumulate_kit(family):
+    return ((kj.edge_pass_plan, kj.jacobi_edge_accumulate,
+             kj.jacobi_edge_accumulate_plain) if family == "edges"
+            else (kj.tet_pass_plan, kj.jacobi_tet_accumulate,
+                  kj.jacobi_tet_accumulate_plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["medium", "heavy"])
+@pytest.mark.parametrize("family", ["edges", "tets"])
+def test_accumulate_kernels_match_plain_on_card(family, case, cuda_device):
+    """The passes' accumulate-only mode: (delta, count) per row within
+    1e-5 of the plain version (``edge_jacobi_deltas`` /
+    ``tet_jacobi_deltas``), counts equal, 20 launches equal bit for bit,
+    and the apply of its sums the apply pass's result within 1e-5; on
+    tet_ball(5) too (the centre heavy: summed by the last CTA)."""
+    make, fn, plain = _accumulate_kit(family)
+    if case == "heavy":
+        from test_torch_jacobi_tiles import fan_ball
+
+        topo = fan_ball(5)
+        rng = np.random.default_rng(5)
+        V = topo.num_particles
+        xin = torch.zeros((V, 4))
+        xin[:, :3] = torch.from_numpy((topo.vertices + rng.normal(
+            0.0, 0.01, (V, 3))).astype(np.float32))
+        xin[:, 3] = torch.from_numpy(rng.uniform(0.5, 2.0, V).astype(
+            np.float32))
+        xin = xin.to(cuda_device)
+        cons = topo.edges if family == "edges" else topo.tets
+        rest = (np.linalg.norm(topo.vertices[cons[:, 0]]
+                               - topo.vertices[cons[:, 1]], axis=1)
+                if family == "edges" else np.full(len(cons), 1e-5))
+    else:
+        topo, xin, rng = _jacobi_table(SIZES["medium"], cuda_device, seed=6)
+        cons, rest = ((topo.edges, topo.edge_rest) if family == "edges"
+                      else (topo.tets, topo.tet_rest_vol))
+    V = topo.num_particles
+    plan = make(V, cons, np.asarray(rest, np.float32), device=cuda_device,
+                vertices=topo.vertices)
+    assert (len(plan.tiles.heavy) > 0) == (case == "heavy")
+    got, want = torch.empty_like(xin), torch.empty_like(xin)
+    before = fn.launches
+    fn(plan, xin, got, 0.9)
+    assert fn.launches == before + 1
+    plain(plan, xin, want, 0.9)
+    outs = torch.empty((20, V, 4), device=cuda_device)
+    for i in range(20):
+        fn(plan, xin, outs[i], 0.9)
+    applied = torch.empty_like(xin)
+    (kj.jacobi_edge_pass if family == "edges" else kj.jacobi_tet_pass)(
+        plan, xin, applied, 0.9, 1.4)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[:, :3], want[:, :3], rtol=0, atol=1e-5)
+    assert torch.equal(got[:, 3], want[:, 3])
+    assert got[:, :3].abs().max() > 1e-4
+    assert torch.equal(outs, got.expand_as(outs))
+    mine = kj.apply_delta(xin[:, :3], xin[:, 3], got[:, :3], got[:, 3], 1.4)
+    torch.testing.assert_close(mine, applied[:, :3], rtol=0, atol=1e-5)
+    assert plan.tiles.ticket.item() == 0
+
+
+def test_fixed_sum_carries_values_it_cannot_hold():
+    """``core/fixed.py::index_sum``: a row that takes a NaN, an infinity
+    or a value of 2^23 or more sums to NaN in every column, as a float
+    scatter would carry it; every other row is the exact sum of its
+    values (here multiples of 2^-10, which the cut keeps whole)."""
+    from softbodysim_torch.core.fixed import LIMIT, index_sum
+
+    rng = np.random.default_rng(0)
+    vals = (rng.integers(-4096, 4096, (40, 3)) / 1024.0).astype(np.float32)
+    idx = rng.integers(0, 10, 40)
+    idx[:4] = [3, 5, 7, 7]
+    vals[0, 1], vals[1, 2], vals[2, 0] = np.nan, np.inf, LIMIT
+    vals[3, 0] = -np.inf
+    got = index_sum(10, ((torch.from_numpy(idx), torch.from_numpy(vals)),))
+    bad = np.zeros(10, bool)
+    bad[[3, 5, 7]] = True
+    assert torch.isnan(got[bad]).all()
+    want = np.zeros((10, 3))
+    np.add.at(want, idx, vals.astype(np.float64))
+    assert np.array_equal(got[~bad].numpy(), want[~bad].astype(np.float32))
+
+
+@pytest.mark.parametrize("family", ["edges", "tets"])
+def test_jacobi_deltas_carry_a_nan_through(family, monkeypatch):
+    """A NaN position comes out of ``edge_jacobi_deltas`` /
+    ``tet_jacobi_deltas`` (their int64 sums) as NaN on the rows where a
+    float scatter-add of the same contributions gives NaN, and on no
+    other row; the other rows are within 1e-6 of that scatter's, and
+    where no constraint of the NaN vertex reaches, the same bits as
+    without the NaN."""
+    topo, xw, _ = _jacobi_table(4, "cpu")
+    x, w = xw[:, :3].clone(), xw[:, 3]
+    V = topo.num_particles
+    if family == "edges":
+        def deltas(pos):
+            return kj.edge_jacobi_deltas(pos, w, torch.from_numpy(topo.edges),
+                                         torch.from_numpy(topo.edge_rest),
+                                         0.9, V)[0]
+    else:
+        def deltas(pos):
+            return kj.tet_jacobi_deltas(pos, w, torch.from_numpy(topo.tets),
+                                        torch.from_numpy(topo.tet_rest_vol),
+                                        0.9, V)[0]
+
+    def float_sum(n, parts):
+        parts = list(parts)
+        out = torch.zeros((n, parts[0][1].shape[1]))
+        for index, values in parts:
+            out.index_add_(0, index, values)
+        return out
+
+    clean = deltas(x)
+    x[40, 1] = float("nan")
+    got = deltas(x)
+    monkeypatch.setattr(kj, "index_sum", float_sum)
+    want = deltas(x)
+    bad = torch.isnan(want).any(1)
+    assert 0 < int(bad.sum()) < V
+    assert torch.equal(torch.isnan(got).any(1), bad)
+    assert torch.isnan(got[bad]).all()
+    torch.testing.assert_close(got[~bad], want[~bad], rtol=0, atol=1e-6)
+    cons = topo.edges if family == "edges" else topo.tets
+    far = np.ones(V, bool)
+    far[np.unique(cons[(cons == 40).any(1)])] = False
+    assert torch.equal(got[far], clean[far])
+
+
+@pytest.mark.cuda
+def test_segment_step_repeats_its_bits_on_card(cuda_device):
+    """'segment' sums in int64 fixed point: two card runs of 10 steps on
+    the floor box are equal bit for bit, and within 1e-4 m of the CPU."""
+    topo = sbt.meshes.tet_cube(6, 6, 6, size=0.5, center=(0.0, 0.45, 0.0))
+    params = sbt.SolverParams(dialect="jacobi", substeps=2, iterations=4,
+                              jacobi_backend="segment")
+    runs = []
+    for dev in (cuda_device, cuda_device, "cpu"):
+        eng = sbt.Engine(topo, params, colliders=sbt.Colliders.build(
+            [BOX], device=dev), device=dev)
+        eng.run(10, DT)
+        runs.append(eng.state)
+    for f in ("x", "v"):
+        assert torch.equal(getattr(runs[0], f), getattr(runs[1], f)), f
+    torch.testing.assert_close(runs[0].x.cpu(), runs[2].x, rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_sharded_steps_on_card(cuda_device, tmp_path):
+    """The kernel-sharded steps on the card, from the rest shape with
+    seeded velocities N(0, 0.5) m/s: world size 1 on NCCL in this process
+    (xpbd bit for bit the single-device sweep step, jacobi within 1e-5 m
+    of the single-device pass step), then two spawned ranks on a gloo
+    group sharing the card (the same jacobi within 1e-5 m, both ranks the
+    same bits).  Each run's constraint correction, over all rows and over
+    the ghost windows' rows, is at least 10 times the 1e-5 m limit, so a
+    dropped or doubled halo contribution would fail."""
+    import torch.distributed as dist
+
+    from softbodysim_torch.parallel import make_mesh, spawn
+
+    import torch_sharded_ranks as tr
+
+    cube = ("tet_cube", (8, 8, 8, 0.7, (0.0, 0.5, 0.0)))
+    topo = tr._topology(cube)
+    jac = dict(dialect="jacobi", substeps=2, iterations=3,
+               jacobi_backend="pass")
+    xp = dict(dialect="xpbd", substeps=2, iterations=2,
+              xpbd_backend="sweep")
+    seed, sigma, steps, need = 3, 0.5, 6, 10 * 1e-5
+    single, free_move = {}, {}
+    for name, kw in (("jacobi", jac), ("xpbd", xp)):
+        e = sbt.Engine(topo, sbt.SolverParams(**kw), device=cuda_device)
+        e.state = tr.kicked(e, seed, sigma)
+        free_move[name] = tr.ballistic(e.state, e.params, steps)
+        e.run(steps, DT)
+        single[name] = e.positions()
+        assert np.abs(single[name] - free_move[name]).max() >= need
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        for name, kw in (("jacobi", jac), ("xpbd", xp)):
+            e = sbt.Engine(topo, sbt.SolverParams(**kw), mesh=mesh,
+                           device=cuda_device)
+            e.state = tr.kicked(e, seed, sigma)
+            e.run(steps, DT)
+            if name == "xpbd":
+                assert np.array_equal(e.positions(), single[name])
+            else:
+                np.testing.assert_allclose(e.positions(), single[name],
+                                           rtol=0, atol=1e-5)
+    finally:
+        dist.destroy_process_group()
+    res = spawn(tr.run_cuda_engine, 2, cube, jac, steps, seed, sigma,
+                backend="gloo", timeout_s=300.0)
+    assert np.array_equal(res[0]["x"], res[1]["x"])
+    np.testing.assert_allclose(res[0]["x"], single["jacobi"], rtol=0,
+                               atol=1e-5)
+    halo = res[0]["halo"]
+    assert len(halo) > 0
+    assert np.abs(res[0]["x"] - free_move["jacobi"])[halo].max() >= need
 
 
 # --------------------------------------------------------------------------
@@ -1239,9 +1443,8 @@ def _check_refusal(step, topo, device):
 def _check_jacobi_grad(device, backend):
     """The jacobi plain step as ``make_step`` builds it, on the box
     collider: stepped under autograd it gives what it gives under
-    torch.no_grad() -- the same bits where the backend repeats its own
-    ('segment' on the card sums with atomics, so there within 1e-5 m,
-    40x the card-against-CPU difference of phase K5) -- with the collide
+    torch.no_grad() -- the same bits (both backends repeat their own on
+    either device; 'segment' sums in int64 fixed point) -- with the collide
     kernel launched once per iteration on the card (none on the CPU),
     and a finite, nonzero gradient w.r.t. the stiffness, omega and the
     initial velocity."""
@@ -1266,10 +1469,7 @@ def _check_jacobi_grad(device, backend):
     assert launched == (3 * 2 * 2 if str(device) != "cpu" else 0)
     with torch.no_grad():
         again = step.step_n(s0, DT, 3, edge_stiffness=0.7, sor_omega=1.3).x
-    if str(device) != "cpu" and backend == "segment":
-        torch.testing.assert_close(out.detach(), again, rtol=0, atol=1e-5)
-    else:
-        assert torch.equal(out.detach(), again)
+    assert torch.equal(out.detach(), again)
     assert (want - again).abs().max() > 1e-4    # the overrides are read
     grads = torch.autograd.grad(out[:, 1].sum(), (k, om, v))
     for g in grads:

@@ -11,6 +11,8 @@ contact stages pass through: the xpbd north star on the sweep kernels
 (tet_cube(47), 8 x 1; 20-step windows), the jacobi dialect on the same
 cube on the pass kernels (2 x 6, floor box; 20-step windows), the jacobi
 'gather' step on tet_ball(2, 0.3) over the floor box (20-step windows),
+the jacobi 'segment' step on the cube (10-step windows) and on the ball
+(20-step windows),
 the coloured xpbd step on the same ball (2-step windows) and the batched
 jacobi step (tet_cube(10) x 128, 'gather'; 10-step windows): the median
 of three windows after warm steps, host clock ending in a synchronize.
@@ -65,6 +67,12 @@ def measure(dev="cuda") -> dict:
         "jacobi_ball_gather": (sbt.Engine(
             ball, sbt.SolverParams(**JACOBI), colliders=box, device=dev),
             20, 32),
+        "jacobi_tet_cube47_segment": (sbt.Engine(
+            cube, sbt.SolverParams(**JACOBI, jacobi_backend="segment"),
+            colliders=box, device=dev), 10, 8),
+        "jacobi_ball_segment": (sbt.Engine(
+            ball, sbt.SolverParams(**JACOBI, jacobi_backend="segment"),
+            colliders=box, device=dev), 20, 32),
         "xpbd_ball_coloured": (sbt.Engine(ball, sbt.SolverParams(
             substeps=2, iterations=6), colliders=box, device=dev), 2, 4),
     }
