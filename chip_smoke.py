@@ -136,7 +136,9 @@ I-J. Serving, the CLI and the render layer, after phase H and before any
       beside it; the sweep kernels launched; the INIT-to-first-reply
       seconds (the server's make time) and the ms per round trip beside
       phase 3's ms/step; that Engine's host dispatch per step beside its
-      device time (the dispatch must not wait for the device).  Then with
+      device time, and one step dispatched while the stream is held busy
+      for at least 0.5 s (20x its dispatch): the dispatch must return
+      inside the hold (it must not wait for the device).  Then with
       client work of one round trip per frame, 20 timed frames lock-step
       and 20 pipelined: pipelined reply k is lock-step reply k-1 bit for
       bit, and pipelined frames/s at least 1.3x lock-step.  Two concurrent
@@ -210,6 +212,19 @@ L. The kernel-sharded steps (``Engine(mesh=...)``), after phase K and
    and the transport, and a {"sharded": {...}} line (with the card's
    name and power limit). The D = 2 ranks share one card: not a
    scale-out figure.
+M. The bf16 particle table (``SolverParams.xpbd_x_dtype="bfloat16"``),
+   after phase L and before any profiler runs.  M1: the bf16 w fill,
+   sweeps and collide stage against their plain versions on phase 11's
+   perturbed north-star table rounded to bf16 (the w fill bit for bit;
+   coordinates within 1 bf16 ulp, at least 90% of the rows bit-equal;
+   lambdas 1e-3 of the largest), each sweep's schedule against one CTA
+   bit for bit over 20 launches.  M2: the north star (8 x 1) on the bf16
+   table, 33 steps: only the bf16 instantiations launch, positions
+   finite, mean y within 2^-7 m of the f32 Engine's; three warm 20-step
+   windows beside phase 3's ms/step.  M3: the same on phase 5's box, 9
+   steps: the collide stage's bf16 instantiation launches, the body rests
+   on the box (within one bf16 ulp under its top).  A {"bf16": {...}}
+   line sums it up; the kernels are timed in phase 11.
 11. Every kernel at north-star shapes against its plain PyTorch version
    on the card, from one predicted, perturbed state (the Jacobi ones with
    a box collider and the ground); time both.  The passes' accumulate
@@ -237,6 +252,12 @@ L. The kernel-sharded steps (``Engine(mesh=...)``), after phase K and
    kernel count against phase K's unprofiled ms per step.
    It comes last of the timings: once the profiler has run, the host's
    launches are slower.
+N. ``softbodysim_torch.perf`` at north-star shapes: profile_xpbd_stages
+   (the coloured step's stages, 8 x 1) and profile_jacobi_stages (the
+   segment formulation, phase 4's parameters), each stage fenced by CUDA
+   events; a trace of 4 steps of phase 3's Engine whose summary's top
+   entry is the edge sweep kernel; step_rate.  A {"profile_module": ...}
+   line.
 
 Every path runs with the kernels' launch counts set to 0 just before it and
 read just after.  A {"scenes": {...}} line sums up phases A-D (with the
@@ -269,6 +290,12 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+from softbodysim_torch.perf.profile import (  # noqa: E402
+    HOLD_CYCLES, device_activity, events_ms, kernel_ms, profile_window,
+    short_name, window_ms)
+
 DT = 1.0 / 60.0
 NORTH_STAR = dict(nx=47, ny=47, nz=47, size=1.0, center=(0.0, 2.0, 0.0))
 SEED = 0
@@ -303,9 +330,6 @@ LAM_REL_TOL = 1e-3
 PASS_TOL = 1e-5
 COLLIDE_TOL = 1e-6
 ORACLE_TOL = 1e-4
-# held_ms: cycles the stream is first held busy while calls are enqueued
-# (~10 ms at the H100's 1.98 GHz)
-HOLD_CYCLES = 20_000_000
 # the sweep over its schedule's CTAs against one CTA: launches compared
 SCHEDULE_LAUNCHES = 20
 # a Jacobi pass, launched again from the same snapshot: launches compared
@@ -342,140 +366,6 @@ def card_line() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout
     return out.strip().splitlines()[0]
-
-
-def events_ms(fn, reps: int, warm: bool = True) -> float:
-    """Mean stream time of ``fn`` over ``reps`` back-to-back calls (CUDA
-    events), after one warm-up call unless ``warm`` is False: the host's
-    launch gaps are included, so this times the plain versions as a caller
-    pays for them."""
-    if warm:
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_activity(fn) -> tuple:
-    """Run ``fn`` under torch.profiler: ({name: [count, total us]} over the
-    device-side events -- kernels, memory copies and sets --, the host's
-    wall us from the start to a synchronize after ``fn``)."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    out = collections.defaultdict(lambda: [0, 0.0])
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            row = out[ev.name]
-            row[0] += 1
-            row[1] += ev.time_range.elapsed_us()
-    return dict(out), wall_us
-
-
-def kernel_ms(fn, reps: int, kernels_per_call: int = 1) -> float:
-    """Device time of one call of a kernel wrapper, from the profiler over
-    ``reps`` calls (after one warm-up call): the sum over its device
-    activities of each one's mean time (each runs once per call; the
-    profiler may drop events, so a mean, not a total over ``reps``; a
-    window where it saw fewer than half the calls is run again, up to
-    three times).  The host's launch time between calls is not
-    counted."""
-    fn()
-    for _ in range(3):          # the profiler now and then drops a run
-        acts, _ = device_activity(lambda: [fn() for _ in range(reps)])
-        if len(acts) >= kernels_per_call and all(
-                c >= reps // 2 for c, _ in acts.values()):
-            return sum(t / c for c, t in acts.values()) / 1e3
-        print(f"kernel_ms: the profiler saw {acts} for {reps} calls; "
-              "again", flush=True)
-    ms = held_ms(fn, reps)
-    print(f"kernel_ms: the profiler saw no device activity three times; "
-          f"CUDA events on a held stream instead: {ms:.4f} ms", flush=True)
-    return ms
-
-
-def held_ms(fn, reps: int) -> float:
-    """Device time of one call from CUDA events around ``reps`` calls that
-    are all enqueued while the stream is held busy (torch.cuda._sleep), so
-    the calls run back to back and the host's launch gaps are not counted
-    (the device's own gap between kernels is).  The hold grows until the
-    device is still in it when the last call has been enqueued."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    cycles = HOLD_CYCLES
-    for _ in range(4):
-        torch.cuda.synchronize()
-        torch.cuda._sleep(cycles)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        held = not start.query()
-        torch.cuda.synchronize()
-        if held:
-            return start.elapsed_time(end) / reps
-        cycles *= 4
-    raise AssertionError("held_ms: the hold ended before the calls were "
-                         "enqueued")
-
-
-def timed_window(eng, steps: int, windows: int = 3) -> float:
-    """Host-clock ms/step of a warm Engine: ``windows`` windows of
-    ``steps`` steps, each ending in a synchronize; prints each and returns
-    their median (the host shares its cores, so one window can be slow)."""
-    ms = []
-    for _ in range(windows):
-        t0 = time.perf_counter()
-        eng.run(steps, DT)
-        eng.block()
-        ms.append((time.perf_counter() - t0) * 1e3 / steps)
-    print(f"{eng.backend}: ms/step in {windows} windows of {steps} steps: "
-          f"{', '.join(f'{m:.4f}' for m in ms)}", flush=True)
-    return float(np.median(ms))
-
-
-def _short(name: str) -> str:
-    """A device activity's name without its namespaces and arguments'
-    tail."""
-    for noise in ("void ", "(anonymous namespace)::", "at::native::"):
-        name = name.replace(noise, "")
-    return name.split("(")[0][:72] if not name.startswith("Memcpy") \
-        else name
-
-
-def profile_window(eng, steps: int, timed_ms: float) -> dict:
-    """One profiled window of ``steps`` steps of a warm Engine: per device
-    activity its count and mean us, the device's busy ms per step, and
-    that over ``timed_ms``
-    (the unprofiled window's ms/step) as the busy share.  The profiled
-    window's own wall time is printed too; the profiler slows the host's
-    launches, so it is not the step's time."""
-    acts, wall_us = device_activity(lambda: eng.run(steps, DT).block())
-    merged = collections.defaultdict(lambda: [0, 0.0])
-    for name, (c, t) in acts.items():
-        row = merged[_short(name)]
-        row[0] += c
-        row[1] += t
-    busy = sum(t for _, t in acts.values()) / 1e3 / steps
-    return {"backend": eng.backend, "steps": steps,
-            "profiled_wall_ms_per_step": wall_us / 1e3 / steps,
-            "device_busy_ms_per_step": busy,
-            "device_busy_share": busy / timed_ms,
-            "device": {name: {"count": c, "mean_us": t / c,
-                              "us_per_step": t / steps}
-                       for name, (c, t) in sorted(merged.items(),
-                                                  key=lambda kv: -kv[1][1])}}
 
 
 def nbytes(*tensors) -> int:
@@ -612,11 +502,11 @@ def compare_legacy_kernels(sbt, ksw, topo, device) -> dict:
     return res
 
 
-def check_schedule(name, plan, one_cta, xw, lam0, kernel) -> float:
+def check_schedule(name, plan, one_cta, xw, lam0, kernel) -> None:
     """The sweep over its schedule's CTAs against the same kernel on one
     CTA (plan order): SCHEDULE_LAUNCHES back-to-back launches each from the
     same table, every launch's xw and lambda equal bit for bit.  Prints the
-    schedule; returns the one-CTA kernel's ms per call."""
+    schedule."""
     from softbodysim_torch.kernels import sweep as ksw
 
     st = plan.staged
@@ -632,7 +522,7 @@ def check_schedule(name, plan, one_cta, xw, lam0, kernel) -> float:
         snaps = []
         for _ in range(SCHEDULE_LAUNCHES):
             kernel(x, lam, p)
-            snaps.append(torch.cat([x.reshape(-1), lam]))
+            snaps.append(torch.cat([x.float().reshape(-1), lam]))
         outs.append(torch.stack(snaps))
     torch.cuda.synchronize()
     ksw.raise_on_timeouts()
@@ -643,8 +533,6 @@ def check_schedule(name, plan, one_cta, xw, lam0, kernel) -> float:
     if not torch.equal(outs[0], outs[1]):
         raise AssertionError(f"{name}: the schedule on {st.queues} CTAs "
                              f"differs from one CTA ({diff})")
-    x, lam = xw.clone(), lam0.clone()
-    return kernel_ms(lambda: kernel(x, lam, one_cta), 10)
 
 
 def compare_sweep(name, plan, xw, kernel, plain, tables, lane_ops: int,
@@ -682,7 +570,9 @@ def compare_sweep(name, plan, xw, kernel, plain, tables, lane_ops: int,
         raise AssertionError(f"{name}: lambdas disagree ({el})")
     if not moved > 0.0:
         raise AssertionError(f"{name}: the sweep moved nothing")
-    one_ms = check_schedule(name, plan, one_cta, xw, lam0, kernel)
+    check_schedule(name, plan, one_cta, xw, lam0, kernel)
+    x1, l1 = xw.clone(), lam0.clone()
+    one_ms = kernel_ms(lambda: kernel(x1, l1, one_cta), 10)
     ms = kernel_ms(lambda: kernel(xa, la), 10)
     print(f"{name}: {ms:.4f} ms on {plan.staged.queues} CTAs, {one_ms:.4f} "
           f"ms on one CTA; the earlier one-CTA design "
@@ -731,7 +621,7 @@ def xpbd_main_path(sbt, topo, device) -> tuple:
     if not drop > 0.0:
         raise AssertionError("the body did not fall")
 
-    return counts, timed_window(eng, 20), eng
+    return counts, window_ms(eng.backend, lambda n: eng.run(n, DT), 20), eng
 
 
 def xpbd_reference_check(sbt, device, superblocks: bool) -> float:
@@ -817,7 +707,7 @@ def legacy_main_path(sbt, topo, device) -> tuple:
         if not counts[name] > 0:
             raise AssertionError(f"{name} was not launched: {counts}")
 
-    return counts, timed_window(eng, 5), eng
+    return counts, window_ms(eng.backend, lambda n: eng.run(n, DT), 5), eng
 
 
 def xpbd_collider_check(sbt, device) -> float:
@@ -901,7 +791,7 @@ def coloured_checks(sbt, device) -> tuple:
                              f"({min_y})")
     if not counts["collide"] > 0:
         raise AssertionError(f"collide was not launched: {counts}")
-    c_ms = timed_window(eng, 2)
+    c_ms = window_ms(eng.backend, lambda n: eng.run(n, DT), 2)
 
     topo = sbt.meshes.tet_cube(3, 3, 3, size=0.5, center=(0.0, 0.6, 0.0))
     params = sbt.SolverParams(dialect="xpbd", substeps=2, iterations=4,
@@ -1220,7 +1110,7 @@ def jacobi_main_path(sbt, topo, device) -> tuple:
     if not eng._raw_step._graphs:
         raise AssertionError("the pass step captured no CUDA graph")
 
-    return counts, timed_window(eng, 20), eng
+    return counts, window_ms(eng.backend, lambda n: eng.run(n, DT), 20), eng
 
 
 def jacobi_variant_paths(sbt, topo, device) -> dict:
@@ -1322,7 +1212,7 @@ def jacobi_ball_path(sbt, device) -> tuple:
             raise AssertionError(f"{name} was not launched: {counts}")
     if counts["collide"] != 0:
         raise AssertionError(f"collide was launched: {counts}")
-    return timed_window(eng, 20), eng
+    return window_ms(eng.backend, lambda n: eng.run(n, DT), 20), eng
 
 
 def cpu_spread_engines(sbt, topo, params) -> list:
@@ -1587,20 +1477,6 @@ def merged_vs_solo(sbt, eng, voffs, bodies, knob, backend, steps,
     return summary, max(errs[0]), min(errs[1])
 
 
-def window_ms(label: str, run, steps: int, windows: int = 3) -> float:
-    """Host-clock ms/step of ``run(steps)`` (which ends in a synchronize):
-    ``windows`` windows, each printed; their median."""
-    ms = []
-    for _ in range(windows):
-        t0 = time.perf_counter()
-        run(steps)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3 / steps)
-    print(f"{label}: ms/step in {windows} windows of {steps} steps: "
-          f"{', '.join(f'{m:.4f}' for m in ms)}", flush=True)
-    return float(np.median(ms))
-
-
 def check_launched(counts: dict, names, label: str) -> None:
     for name in names:
         if not counts[name] > 0:
@@ -1733,7 +1609,8 @@ def partitioned_path(sbt, device) -> tuple:
     ms = window_ms("phase B partitioned_mixed_dialect", part.run, 32)
     # each program alone, for its profile's busy share
     programs = [(f"partitioned_mixed_dialect {e.backend} program", e,
-                 timed_window(e, 32)) for e, _, _ in part.entries]
+                 window_ms(e.backend, lambda n: e.run(n, DT), 32))
+                for e, _, _ in part.entries]
     pos = part.positions()
     bad = [n for n, x in pos.items() if not np.isfinite(x).all()]
     if bad or len(pos) != 20:
@@ -2153,7 +2030,7 @@ def contact_run(sbt, topo, slices, params, device, label: str) -> dict:
     kernels = (("w_fill", "edge_sweep", "tet_sweep") if eng.backend ==
                "sweep" else ("jacobi_edge_pass", "jacobi_tet_pass_collide"))
     check_launched(counts, kernels, f"phase G {label}")
-    ms = timed_window(eng, 20)
+    ms = window_ms(eng.backend, lambda n: eng.run(n, DT), 20)
     return {"engine": eng, "backend": eng.backend, "host_plan_s": plan_s,
             "caps": caps, "ms_per_step": ms, "rise_m": rise,
             "deep_share": deep, "launches": counts}
@@ -2185,7 +2062,7 @@ def contact_profile(eng, params, ms: float) -> dict:
         peak = torch.cuda.max_memory_allocated() - base
         by_name = collections.defaultdict(float)
         for k, (_, t) in acts.items():
-            by_name[_short(k)] += t / 5
+            by_name[short_name(k)] += t / 5
         out[name] = {"device_ms_per_call": dev_ms,
                      "device_ops_per_call": ops, "peak_mb": peak / 1e6,
                      "top_us_per_call": dict(sorted(
@@ -2355,9 +2232,11 @@ SERVE_STEPS = 20
 SMALL_STEPS = 10
 # pipelined frames/s over lock-step frames/s at matched client work
 PIPELINE_GAIN = 1.3
-# a step's host dispatch at most this share of its device time (no hidden
-# synchronize in the sweep step)
-DISPATCH_SHARE = 0.5
+# the device holds of the no-wait check (the sweep step's dispatch must
+# return while the stream is still held: no hidden synchronize), each at
+# least this many times the step's median host dispatch
+DISPATCH_HOLDS_MS = (500.0, 2000.0)
+DISPATCH_HOLD_FACTOR = 20.0
 # vertex_normals on the card against the CPU (index_add_ sums in no fixed
 # order on the card; unit normals)
 NORMALS_TOL = 1e-5
@@ -2527,6 +2406,40 @@ def dispatch_vs_device(eng, steps: int) -> tuple:
     return float(np.median(host)), float(np.median(dev))
 
 
+def dispatch_waits(eng, host_ms: float) -> tuple:
+    """Whether a warm Engine's ``step`` waits for the device: the step is
+    dispatched while its stream is held busy (torch.cuda._sleep) for at
+    least ``DISPATCH_HOLD_FACTOR`` times its median host dispatch
+    ``host_ms``, and an event recorded after the hold is queried as the
+    dispatch returns.  A synchronize anywhere in the dispatch finds the
+    hold over; a dispatch that waits for nothing returns inside it.  Each
+    hold of ``DISPATCH_HOLDS_MS`` is tried in turn, so only a dispatch
+    that outlasts every one of them reads as waiting.  Returns (waited,
+    the last dispatch's host ms, its hold's ms)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(HOLD_CYCLES)
+    end.record()
+    end.synchronize()
+    cycles_per_ms = HOLD_CYCLES / start.elapsed_time(end)
+    for hold in DISPATCH_HOLDS_MS:
+        hold = max(hold, DISPATCH_HOLD_FACTOR * host_ms)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(hold * cycles_per_ms))
+        held = torch.cuda.Event()
+        held.record()
+        t0 = time.perf_counter()
+        eng.step(DT)
+        host = (time.perf_counter() - t0) * 1e3
+        waited = held.query()
+        torch.cuda.synchronize()
+        if not waited:
+            return False, host, hold
+    return True, host, hold
+
+
 def serving_path(sbt, topo, device, x_ms: float) -> dict:
     """Phase I: the PBD1 server on the card at the north star (lock-step,
     pipelined, two concurrent sessions, the native comm loop), two
@@ -2573,7 +2486,11 @@ def serving_path(sbt, topo, device, x_ms: float) -> dict:
     host_ms, dev_ms = dispatch_vs_device(ref, 10)
     print(f"phase I sweep step: host dispatch {host_ms:.3f} ms, device "
           f"{dev_ms:.3f} ms (median of 10)", flush=True)
-    if not host_ms < DISPATCH_SHARE * dev_ms:
+    waited, held_host, hold_ms = dispatch_waits(ref, host_ms)
+    print(f"phase I sweep step dispatched behind a {hold_ms:.0f} ms device "
+          f"hold: returned in {held_host:.3f} ms, "
+          f"{'after' if waited else 'inside'} the hold", flush=True)
+    if waited:
         raise AssertionError("phase I: the step's dispatch waits for the "
                              "device")
 
@@ -3158,7 +3075,7 @@ def diff_profile(sbt, topo, device, grads: dict) -> None:
         busy = sum(t for _, t in acts.values()) / 1e3
         kernels = sum(c for c, _ in acts.values())
         ms = grads[label]["ms_no_remat"] / DIFF_STEPS
-        top = sorted(((_short(n), c, t) for n, (c, t) in acts.items()),
+        top = sorted(((short_name(n), c, t) for n, (c, t) in acts.items()),
                      key=lambda x: -x[2])[:8]
         print(json.dumps({
             "profile": f"diff {label} value_and_grad, 1 step, no remat",
@@ -3510,6 +3427,270 @@ def segment_repeat(sbt, topo, device) -> dict:
     return {"same_bits": same, "constraint_correction_m": work}
 
 
+# --------------------------------------------------------------------------
+# Phase M: the bf16 particle table; phase N: softbodysim_torch.perf
+# --------------------------------------------------------------------------
+
+# M1: the bf16 kernels against their plain versions on the same bf16
+# table.  The two sum a row's corrections in f32 in different orders (CSR
+# rows against index_add_), and a difference of a few f32 ulp at a bf16
+# rounding boundary rounds one bf16 ulp apart: every coordinate within 1
+# bf16 ulp of its magnitude (2^-7 m at |x| in [1, 2), 2^-6 at [2, 4)), at
+# least BF16_ROWS_EQUAL of the rows bit-equal; the w fill bit for bit;
+# lambdas within LAM_REL_TOL of the largest.  Never held at X_TOL.
+BF16_ROWS_EQUAL = 0.9
+# M2: the north star on the bf16 table against the f32 Engine, both 33
+# steps from rest (the body reaches the ground): mean y within this (m),
+# under one bf16 ulp at the body's height (2^-7 m)
+BF16_MEAN_Y_TOL = 2.0 ** -7
+# phase N: north-star steps traced
+TRACE_STEPS = 4
+
+
+def bf16_agreement(got, want) -> tuple:
+    """(largest |got - want| in bf16 ulps of the coordinate, share of the
+    rows bit-equal) of two (V, 4) tables."""
+    a, b = got[:, :3].float(), want[:, :3].float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+    ulps = ((a - b).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7))
+    return (ulps.max().item(),
+            (got == want).all(1).float().mean().item())
+
+
+def check_bf16(name, got, want, before) -> float:
+    """Hold a bf16 table against its plain version (BF16_ROWS_EQUAL, 1
+    bf16 ulp; w untouched); its max |diff| in m."""
+    ulps, equal = bf16_agreement(got, want)
+    err = (got.float() - want.float()).abs().max().item()
+    moved = (got.float() - before.float()).abs().max().item()
+    print(f"{name}: max|x_kernel - x_plain| = {err:.3e} m, {ulps:.2f} bf16 "
+          f"ulp (tol 1), rows bit-equal {equal:.4f} (at least "
+          f"{BF16_ROWS_EQUAL}), max move {moved:.3e} m", flush=True)
+    if not (ulps <= 1.0 and equal >= BF16_ROWS_EQUAL):
+        raise AssertionError(f"{name}: the bf16 tables disagree")
+    if not torch.equal(got[:, 3], before[:, 3]):
+        raise AssertionError(f"{name}: the inverse masses were written")
+    if not moved > 0.0:
+        raise AssertionError(f"{name}: nothing moved")
+    return err
+
+
+def compare_bf16_kernels(sbt, ksw, topo, device) -> tuple:
+    """Phase M1: the bf16 w fill, sweeps and collide stage against their
+    plain versions on the north star's perturbed table (phase 11's)
+    rounded to bf16, and each sweep's schedule against one CTA bit for
+    bit.  No profiler runs here: returns ({name: the result row without
+    its kernel time}, {name: a call of the kernel}) for phase 11 to time."""
+    from softbodysim_torch.kernels import collide as kc
+
+    step, xw32, alphas = perturbed_table(sbt, topo, device, superblocks=True)
+    xw = xw32.to(torch.bfloat16)
+    ks = step.block_scheme["local_iters"]
+    rows, calls = {}, {}
+
+    # w fill: bit for bit (the same two products and sum on the same
+    # upcast w)
+    err, plain_ms, nb, ops = 0.0, 0.0, 0, 0
+    wtabs = {}
+    for fam in ("edges", "tets"):
+        plan = step.device_plans[fam]
+        wk = wtabs[fam] = ksw.w_fill(plan, xw)
+        wp = ksw.w_fill_plain(plan, xw)
+        torch.cuda.synchronize()
+        if not torch.equal(wk, wp):
+            raise AssertionError(f"w_fill_bf16 ({fam}) disagrees: "
+                                 f"{(wk - wp).abs().max().item()}")
+        plain_ms += events_ms(lambda p=plan: ksw.w_fill_plain(p, xw), 20)
+        nb += nbytes(plan.verts, plan.counts, xw, wk)
+        ops += wk.numel() * (3 if plan.arity == 2 else 1)
+    print("w_fill_bf16: the kernel's tables equal the plain version's bit "
+          "for bit", flush=True)
+    rows["w_fill_bf16"] = (err, plain_ms, nb, ops)
+    calls["w_fill_bf16"] = [lambda p=step.device_plans[f]: ksw.w_fill(p, xw)
+                            for f in ("edges", "tets")]
+
+    for name, fam, k, fn, plain, lane_ops in (
+            ("edge_sweep_bf16", "edges", ks[0], ksw.edge_sweep,
+             ksw.edge_sweep_plain, 26),
+            ("tet_sweep_bf16", "tets", ks[1], ksw.tet_sweep,
+             ksw.tet_sweep_plain, 140)):
+        plan, a, wt = step.device_plans[fam], alphas[fam], wtabs[fam]
+        lam0 = torch.zeros(plan.num_blocks * plan.width, device=device)
+        xa, la, xb, lb = xw.clone(), lam0.clone(), xw.clone(), lam0.clone()
+        fn(plan, xa, la, wt, a, k)
+        plain(plan, xb, lb, wt, a, k)
+        torch.cuda.synchronize()
+        ex = check_bf16(name, xa, xb, xw)
+        el = (la - lb).abs().max().item()
+        lmax = lb.abs().max().item()
+        print(f"{name}: max|lam diff| = {el:.3e} (max|lam| {lmax:.3e}, rel "
+              f"tol {LAM_REL_TOL})", flush=True)
+        if not el <= LAM_REL_TOL * lmax:
+            raise AssertionError(f"{name}: lambdas disagree ({el})")
+        one = ksw.to_device(step.gpu_plans[fam], device, queues=1)
+        check_schedule(name, plan, one, xw, lam0,
+                       lambda x, l, p=plan: fn(p, x, l, wt, a, k))
+        plain_ms = events_ms(lambda: plain(plan, xb, lb, wt, a, k), 2)
+        st = plan.staged
+        live = int((plan.verts[:, 0] >= 0).sum().item())
+        nb = (2 * nbytes(xw, lam0)
+              + nbytes(st.lrow, plan.rest, plan.scale, plan.atab, wt,
+                       st.rec, st.qinfo, st.qptr))
+        rows[name] = (max(ex, el), plain_ms, nb,
+                      k * (lane_ops * live + 6 * plan.lane.numel()))
+        calls[name] = [lambda p=plan, f=fn, x=xa, l=la, w=wt, a=a, k=k:
+                       f(p, x, l, w, a, k)]
+
+    # collide on the bf16 table: the lowest 5 cm of the body inside a box
+    # (free rows read and written once; an oriented box ~80 flops each)
+    ymin = float(xw[:, 1].float()[xw[:, 3] != 0].min().item())
+    packed = kc.pack_colliders(sbt.Colliders.build([sbt.Colliders.box(
+        (0.0, ymin - 0.05, 0.0), (1.5, 0.1, 1.5))], device=device))
+    xa = xw.clone()
+    kc.collide(xa, packed, kc.XPBD_GROUND)
+    xb = kc.collide_plain(xw, packed, kc.XPBD_GROUND)
+    torch.cuda.synchronize()
+    err = check_bf16("collide_bf16", xa, xb, xw)
+    free = int((xw[:, 3] != 0).sum().item())
+    rows["collide_bf16"] = (
+        err, events_ms(lambda: kc.collide_plain(xw, packed, kc.XPBD_GROUND),
+                       5), nbytes(xw, packed) + 8 * free, 80 * free)
+    calls["collide_bf16"] = [lambda: kc.collide(xa, packed, kc.XPBD_GROUND)]
+    return rows, calls
+
+
+def time_bf16_kernels(rows, calls) -> dict:
+    """Phase 11: each bf16 kernel's device time per call; its result row."""
+    res = {}
+    for name, (err, plain_ms, nb, ops) in rows.items():
+        ms = sum(kernel_ms(c, 10) for c in calls[name])
+        res[name] = result(err, ms, plain_ms, nb, ops)
+        report(name, res[name])
+    return res
+
+
+def bf16_main_path(sbt, topo, device, x_ms: float) -> tuple:
+    """Phase M2-M3: the north star on the bf16 table (8 x 1), against the
+    f32 Engine, then on a box just under the body; (launch counts of each,
+    ms/step of a timed window)."""
+    params = sbt.SolverParams(dialect="xpbd", substeps=8, iterations=1)
+    bf16 = params.replace(xpbd_x_dtype="bfloat16")
+    f32_eng = sbt.Engine(topo, params, device=device)
+    f32_eng.run(32, DT)
+    f32_eng.step(DT)
+    reset_counts()
+    t0 = time.perf_counter()
+    eng = sbt.Engine(topo, bf16, device=device)
+    eng.run(32, DT)
+    eng.step(DT)
+    eng.block()
+    counts = read_counts()
+    eng.raise_on_timeouts()
+    if eng.backend != "sweep" or eng._carry.xw.dtype != torch.bfloat16:
+        raise AssertionError("phase M: not the sweep step on a bf16 table")
+    pos, ref = eng.positions(), f32_eng.positions()
+    del f32_eng
+    print(f"phase M bf16 north star: backend {eng.backend}, table "
+          f"{eng._carry.xw.dtype}, 33 steps in {time.perf_counter() - t0:.2f}"
+          f" s (incl. set-up), launches {counts}", flush=True)
+    check_launched(counts, ("w_fill_bf16", "edge_sweep_bf16",
+                            "tet_sweep_bf16"), "phase M")
+    ran_f32 = {k: counts[k] for k in ("w_fill", "edge_sweep", "tet_sweep")
+               if counts[k]}
+    if ran_f32:
+        raise AssertionError(f"phase M: f32 kernels launched: {ran_f32}")
+    if not np.isfinite(pos).all():
+        raise AssertionError("phase M: non-finite positions")
+    dy = abs(float(pos[:, 1].mean() - ref[:, 1].mean()))
+    d = np.abs(pos - ref)
+    worst = np.unravel_index(d.argmax(), d.shape)
+    print(f"phase M bf16 against f32 after 33 steps: mean y "
+          f"{pos[:, 1].mean():.6f} / {ref[:, 1].mean():.6f} m (|diff| "
+          f"{dy:.3e}, tol {BF16_MEAN_Y_TOL}), min y {pos[:, 1].min():.6f}; "
+          f"|diff| per coordinate: median {np.median(d):.3e}, 99th "
+          f"percentile {np.percentile(d, 99):.3e}, max {d.max():.3e} m "
+          f"(axis {'xyz'[worst[1]]}, f32 y {ref[worst[0], 1]:.4f} m)",
+          flush=True)
+    if not dy <= BF16_MEAN_Y_TOL:
+        raise AssertionError(f"phase M: mean y {dy} off the f32 run")
+    ms = window_ms("phase M bf16 north star",
+                   lambda n: eng.run(n, DT), 20)
+    print(f"xpbd north star on the bf16 table: {ms:.3f} ms/step against "
+          f"phase 3's {x_ms:.3f} on the f32 table", flush=True)
+
+    # M3: a box LEDGE_GAP under the body (phase 5's): the collide stage's
+    # bf16 instantiation; the body rests on the box within one bf16 ulp
+    # (the push-out rounds to nearest, half an ulp) below its top
+    top = float(topo.vertices[:, 1].min()) - LEDGE_GAP
+    box = sbt.Colliders.build([sbt.Colliders.box(
+        (0.0, top - 0.1, 0.0), (1.5, 0.1, 1.5))], device=device)
+    reset_counts()
+    ceng = sbt.Engine(topo, bf16, colliders=box, device=device)
+    ceng.run(8, DT)
+    ceng.step(DT)
+    ceng.block()
+    c_counts = read_counts()
+    ceng.raise_on_timeouts()
+    cpos = ceng.positions()
+    free = ceng.state.inv_mass.cpu().numpy() != 0
+    min_y = float(cpos[free, 1].min())
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+    print(f"phase M bf16 on the box: 9 steps, launches {c_counts}, free "
+          f"min y {min_y:.6f} (box top {top:.6f}, one bf16 ulp {ulp})",
+          flush=True)
+    check_launched(c_counts, ("collide_bf16", "edge_sweep_bf16",
+                              "tet_sweep_bf16"), "phase M box")
+    if c_counts["collide"]:
+        raise AssertionError("phase M box: the f32 collide kernel ran")
+    if not np.isfinite(cpos).all() or not top - ulp <= min_y <= top + 1e-2:
+        raise AssertionError(f"phase M box: the body is not resting on "
+                             f"the box ({min_y} against {top})")
+    return counts, c_counts, ms
+
+
+def profile_module_path(sbt, topo, device, x_eng) -> dict:
+    """Phase N: softbodysim_torch.perf at north-star shapes -- both stage
+    profiles (CUDA events per stage), a trace of TRACE_STEPS north-star
+    steps summed by kernel (its top entry the edge sweep) and the step
+    rate; prints them and returns them."""
+    import tempfile
+
+    from softbodysim_torch import perf
+
+    t0 = time.perf_counter()
+    out = {
+        "xpbd_stages": perf.profile_xpbd_stages(
+            topo, sbt.SolverParams(dialect="xpbd", substeps=8,
+                                   iterations=1),
+            sbt.init_state(topo, device=device)),
+        "jacobi_stages": perf.profile_jacobi_stages(
+            topo, sbt.SolverParams(**JACOBI),
+            sbt.init_state(topo, inv_mass_mode="density", device=device))}
+    for key, stages in out.items():
+        print(f"phase N {key} (tet_cube(47), ms per call): "
+              f"{json.dumps(stages)}", flush=True)
+        if not all(math.isfinite(v) and v > 0.0 for v in stages.values()):
+            raise AssertionError(f"phase N: {key} {stages}")
+    with tempfile.TemporaryDirectory() as log_dir:
+        with perf.trace(log_dir):
+            x_eng.run(TRACE_STEPS, DT)
+        top = perf.trace_summary(log_dir, 8)
+    print(f"phase N trace of {TRACE_STEPS} north-star steps, device us by "
+          f"kernel: {[(round(us, 1), short_name(n)) for us, n in top]}",
+          flush=True)
+    if not top or "edge_sweep_kernel" not in top[0][1]:
+        raise AssertionError(f"phase N: the trace's top entry is not the "
+                             f"edge sweep: {top[:2]}")
+    out["trace_top"] = [[us, short_name(n)] for us, n in top]
+    out["step_rate"] = perf.step_rate(lambda e, dt: e.step(dt), x_eng, DT,
+                                      steps=10)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase N step_rate (after the profiler ran): "
+          f"{json.dumps(out['step_rate'])}; {out['seconds']:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -3621,9 +3802,18 @@ def main() -> int:
     # the kernel-sharded steps, timed before any profiler runs
     sh_counts, sharded = sharded_path(sbt, topo, device, card)
     print(json.dumps({"sharded": sharded}), flush=True)
+    # the bf16 particle table, before any profiler runs
+    t0 = time.perf_counter()
+    m_rows, m_calls = compare_bf16_kernels(sbt, ksw, topo, device)
+    m_counts, mc_counts, m_ms = bf16_main_path(sbt, topo, device, x_ms)
+    print(json.dumps({"bf16": {
+        "north_star_ms_per_step": m_ms, "f32_ms_per_step": x_ms,
+        "max_abs_err_vs_plain": {k: r[0] for k, r in m_rows.items()},
+        "seconds": time.perf_counter() - t0, "card": card}}), flush=True)
 
     kres = compare_sweep_kernels(sbt, ksw, topo, device)
     kres.update(compare_legacy_kernels(sbt, ksw, topo, device))
+    kres.update(time_bf16_kernels(m_rows, m_calls))
     for name in ("w_fill", "edge_sweep", "tet_sweep", "legacy_edge_sweep",
                  "legacy_tet_sweep"):
         report(name, kres[name])
@@ -3650,6 +3840,8 @@ def main() -> int:
             if eng is j_eng and kern not in prof["device"]:
                 raise AssertionError(f"the jacobi profile names no {kern}")
     diff_profile(sbt, topo, device, grads)
+    print(json.dumps({"profile_module": profile_module_path(
+        sbt, topo, device, x_eng), "card": card}), flush=True)
 
     ksw.raise_on_timeouts()
     src = "softbodysim_torch/kernels/csrc/"
@@ -3680,7 +3872,20 @@ def main() -> int:
         ("jacobi_edge_accumulate", "jacobi.cu",
          "softbodysim_tpu/kernels/jacobi.py:71", sh_counts),
         ("jacobi_tet_accumulate", "jacobi.cu",
-         "softbodysim_tpu/kernels/jacobi.py:158", sh_counts))
+         "softbodysim_tpu/kernels/jacobi.py:158", sh_counts),
+        # the bf16 particle table (make_sweep x_dtype=bfloat16)
+        ("w_fill_bf16", "sweep.cu",
+         "softbodysim_tpu/kernels/sweep.py:1118 (x_dtype=bfloat16)",
+         m_counts),
+        ("edge_sweep_bf16", "sweep.cu",
+         "softbodysim_tpu/kernels/sweep.py:1169 (x_dtype=bfloat16)",
+         m_counts),
+        ("tet_sweep_bf16", "sweep.cu",
+         "softbodysim_tpu/kernels/sweep.py:1267 (x_dtype=bfloat16)",
+         m_counts),
+        # the xpbd collide stage on the bf16 table (xpbd_pallas.py:652)
+        ("collide_bf16", "collide.cu",
+         "softbodysim_tpu/kernels/collide.py:136 (bf16 table)", mc_counts))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + cu,
          "replaces": replaces, "launches": counts[name], **kres[name]}

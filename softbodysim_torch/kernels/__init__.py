@@ -1,6 +1,9 @@
 """Hand-written CUDA kernels (``csrc/*.cu``) behind PyTorch wrappers, each
 with its plain PyTorch version; ``launch_counts`` reads every wrapper's
-count of kernel launches."""
+count of kernel launches.  A wrapper that launches one of several
+instantiations of a kernel (the f32 and the bf16 particle table) counts
+each under its own name: the wrapper's for the f32 one, a
+``LaunchCounter`` beside it for the other."""
 
 import collections
 import contextlib
@@ -23,6 +26,15 @@ def _captures() -> list:
     return stack
 
 
+class LaunchCounter:
+    """The launch count of one instantiation of a wrapper's kernel, under
+    its own name (what ``count_launch`` takes besides a wrapper)."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+
 def _wrappers():
     from . import collide, jacobi, sweep
 
@@ -30,11 +42,14 @@ def _wrappers():
             jacobi.jacobi_edge_pass, jacobi.jacobi_tet_pass,
             jacobi.jacobi_edge_pass_collide, jacobi.jacobi_tet_pass_collide,
             collide.collide, sweep.legacy_edge_sweep, sweep.legacy_tet_sweep,
-            jacobi.jacobi_edge_accumulate, jacobi.jacobi_tet_accumulate)
+            jacobi.jacobi_edge_accumulate, jacobi.jacobi_tet_accumulate,
+            sweep.w_fill_bf16, sweep.edge_sweep_bf16, sweep.tet_sweep_bf16,
+            collide.collide_bf16)
 
 
 def count_launch(fn) -> None:
-    """One launch of ``fn``'s kernel: added to ``fn.launches``, or, while
+    """One launch of ``fn``'s kernel (``fn``: a wrapper or a
+    ``LaunchCounter``): added to ``fn.launches``, or, while
     the current stream captures a CUDA graph (nothing runs), to this
     thread's innermost capture tally (``capture_tally``), which each
     replay adds."""

@@ -120,7 +120,7 @@ def load() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     signatures = {
         # sweep.cu
-        "sbs_w_fill": [p, p, p, p, i, i, p],
+        "sbs_w_fill": [p, p, p, p, i, i, i, p],
         "sbs_sweep_ctas": [i, i, i, i, p, p],
         "sbs_sweep": [i, p, p],
         # jacobi.cu
@@ -129,7 +129,7 @@ def load() -> ctypes.CDLL:
                             p, p, p, p, p, p, i, p, p, i, i, f, f, f, f, f,
                             f, f, i, p],
         # collide.cu
-        "sbs_collide": [p, i, p, i, i, f, f, f, f, f, f, f, p],
+        "sbs_collide": [p, i, p, i, i, f, f, f, f, f, f, f, i, p],
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)

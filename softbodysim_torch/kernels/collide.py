@@ -18,13 +18,17 @@ its plain PyTorch version beside it.
   kernel's check against ``collide_plain`` licenses).  No backward kernel
   is written: the JAX kernel has no VJP either.
 
-``collide`` works in place on a (V, 4) f32 table of rows x, y, z, inverse
+``collide`` works in place on a (V, 4) table of rows x, y, z, inverse
 mass (the layout of the pass backend) and writes only free rows; the
 callers that own such a table call it (the sweep step, the pass
-backend's plain version).  Both wrappers run the plain version on the CPU
-and launch the kernel on a CUDA device, raising if the launch is refused;
-``collide.launches`` counts the kernel's launches by either wrapper and
-nothing else.  ``collide_plain`` is out of place.
+backend's plain version).  The table is f32, or bf16 (the sweep step's
+``xpbd_x_dtype="bfloat16"`` table): a bf16 row is pushed out in f32 from
+its upcast and rounded once on the store, as the JAX sweep step does
+(``softbodysim_tpu/solver/xpbd_pallas.py:652-658``).  Both wrappers run
+the plain version on the CPU and launch the kernel on a CUDA device,
+raising if the launch is refused; ``collide.launches`` counts the f32
+kernel's launches by either wrapper and nothing else, ``collide_bf16``
+the bf16 instantiation's.  ``collide_plain`` is out of place.
 """
 
 from __future__ import annotations
@@ -38,8 +42,8 @@ import torch
 from ..collide.primitives import (Colliders, collide_particles,
                                   project_ground_plane)
 from ..core.state import f32, resolve_device
-from . import count_launch
-from .sweep import _check, _lib, _ptr, _raise_on, _stream
+from . import LaunchCounter, count_launch
+from .sweep import _check, _check_xw, _lib, _ptr, _raise_on, _stream
 
 COLUMNS = 12        # [type, pos3, quat4, data3, active]
 
@@ -120,27 +124,18 @@ def unpack_colliders(packed: torch.Tensor) -> Colliders:
 def collide_plain(xw: torch.Tensor, packed: torch.Tensor,
                   ground: Ground) -> torch.Tensor:
     """``project_ground_plane`` then ``collide_particles`` on the free rows
-    of ``xw``: a new (V, 4) table (xw is not written)."""
-    p = xw[:, :3]
+    of ``xw``: a new (V, 4) table of xw's dtype (xw is not written; a bf16
+    table is pushed out from its f32 upcast and rounded once)."""
+    xf = xw.float()
+    p = xf[:, :3]
     if ground.enabled:
         point, normal = (torch.tensor(v, dtype=torch.float32,
                                       device=xw.device)
                          for v in (ground.point, ground.normal))
         p = project_ground_plane(p, ground.radius, point, normal)
     p = collide_particles(p, ground.radius, unpack_colliders(packed))
-    p = torch.where((xw[:, 3] != 0.0)[:, None], p, xw[:, :3])
-    return torch.cat([p, xw[:, 3:]], 1)
-
-
-def _check_table(xw: torch.Tensor) -> torch.device:
-    if not isinstance(xw, torch.Tensor) or xw.dim() != 2 \
-            or xw.shape[1] != 4:
-        raise ValueError("xw must be a (V, 4) tensor")
-    dev = xw.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    _check(xw, "xw", torch.float32, xw.shape, dev)
-    return dev
+    p = torch.where((xf[:, 3] != 0.0)[:, None], p, xf[:, :3])
+    return torch.cat([p, xf[:, 3:]], 1).to(xw.dtype)
 
 
 def check_packed(packed: torch.Tensor, dev: torch.device) -> None:
@@ -156,7 +151,7 @@ def collide(xw: torch.Tensor, packed: torch.Tensor,
     """The whole collide stage on the free rows of ``xw``, in place;
     returns xw.  ``packed``: a (K, 12) table from ``pack_colliders`` on
     xw's device."""
-    dev = _check_table(xw)
+    dev = _check_xw(xw)
     check_packed(packed, dev)
     if dev.type == "cpu":
         return xw.copy_(collide_plain(xw, packed, ground))
@@ -166,18 +161,21 @@ def collide(xw: torch.Tensor, packed: torch.Tensor,
 
 def _launch(xw: torch.Tensor, packed: torch.Tensor, ground: Ground) -> None:
     """The kernel on ``xw`` (a checked table on the card), in place,
-    counted as ``collide``'s launch."""
+    counted as ``collide``'s launch (``collide_bf16``'s on a bf16
+    table)."""
     (gpx, gpy, gpz), (gnx, gny, gnz) = ground.point, ground.normal
     f = ctypes.c_float
+    bf16 = xw.dtype == torch.bfloat16
     rc = _lib().sbs_collide(
         _ptr(xw), xw.shape[0], _ptr(packed), packed.shape[0],
         int(ground.enabled), f(gpx), f(gpy), f(gpz), f(gnx), f(gny), f(gnz),
-        f(ground.radius), _stream(xw.device))
+        f(ground.radius), int(bf16), _stream(xw.device))
     _raise_on(rc, "collide")
-    count_launch(collide)
+    count_launch(collide_bf16 if bf16 else collide)
 
 
 collide.launches = 0
+collide_bf16 = LaunchCounter("collide_bf16")
 
 
 class CollideFunction(torch.autograd.Function):

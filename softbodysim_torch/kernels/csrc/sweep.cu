@@ -10,6 +10,13 @@
 //                                         _gather_role :805 and
 //                                         _scatter_slot :818)
 //   tet_sweep_kernel<128, true>        <- _tet_kernel  (sweep.py:894)
+// The w fill and the super-block sweeps are instantiated on both particle
+// tables of the JAX kernels (rows.cuh): float32, and bfloat16 -- the
+// x_dtype=bfloat16 mode of make_sweep (sweep.py:1591), which upcasts
+// every read (_gather_xyz :1083, _gather_w :1104, the per-target w at
+// :1242 and :1354) and rounds each window's read-modify-write back on the
+// store (_scatter_super :1151-1166).  The legacy sweeps take the f32 table
+// only, as the JAX legacy kernels (sweep.py:1648-1652).
 //
 // Semantics (the JAX package's, replayed by tests/oracle.py::step_blocks):
 // constraints are packed into blocks -- super-blocks of 1024, or the legacy
@@ -29,7 +36,8 @@
 //
 // Design.  The particle table xw is (Vpad, 4) f32 -- x, y, z, inverse mass
 // -- so a row is one 16-byte load; at the north-star size it is 1.7 MB and
-// stays in L2.  What bounds a sweep is latency, not bytes or FLOPs: each
+// stays in L2 (the bf16 table: one 8-byte row, 0.9 MB).  What bounds a
+// sweep is latency, not bytes or FLOPs: each
 // block is a short chain of dependent steps, and the plan order allows
 // little parallelism (north star: 744 edge blocks in 626 dependency
 // levels, 584 tet blocks in 110).  So:
@@ -53,7 +61,10 @@
 //        per-role corrections to shared memory; __syncthreads;
 //     D. one thread per row walks the row's entries (each (lane, role)
 //        once, ascending: a fixed sum order, no atomics), adds the sum to
-//        the shared row -- and on the last visit writes it to xw; then
+//        the shared row -- and on the last visit writes it to xw; on the
+//        bf16 table the row rounds through bf16 after every visit (the
+//        JAX kernel's per-visit store), so a revisit reads rounded
+//        positions, as the JAX kernel's gathers read its table; then
 //        __syncthreads, and if another queue waits for the block, one
 //        thread publishes it (st.release.gpu of the flag).
 //     The position-independent part of a block (lrow, lambda, rest, scale,
@@ -81,6 +92,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rows.cuh"
+
 namespace {
 
 constexpr int kSuper = 1024;     // constraints per super-block == CTA size
@@ -90,7 +103,7 @@ constexpr unsigned long long kTimeoutNs = 2000000000ull;
 
 // The launch's arguments (mirrored by kernels/sweep.py::_SweepArgs).
 struct SweepArgs {
-  float4* xw;
+  void* xw;              // (Vpad, 4) rows of the kernel's Row type
   float* lam;
   const short* lrow;     // (NB*W, arity) block-local row per (lane, role)
   const float* rest;
@@ -501,7 +514,7 @@ __device__ void abort_launch(const SweepArgs& a) {
   __threadfence_system();
 }
 
-template <int kBlock, class Lane>
+template <int kBlock, class Lane, class Row>
 __device__ void run_queue(const SweepArgs& a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = make_layout<kBlock, Lane::kArity, Lane::kIsLegacy>(
@@ -509,6 +522,7 @@ __device__ void run_queue(const SweepArgs& a) {
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   float4* rows = reinterpret_cast<float4*>(smem + L.srow);
   float* corr = reinterpret_cast<float*>(smem + L.corr);
+  typename Row::T* xw = static_cast<typename Row::T*>(a.xw);
   const int t = threadIdx.x;
   const int i0 = a.qptr[blockIdx.x];
   const int n = a.qptr[blockIdx.x + 1] - i0;
@@ -559,7 +573,7 @@ __device__ void run_queue(const SweepArgs& a) {
     const int* cvert = rec + kRecHeader + ((nw + 3) & ~3);
     const int* rptr = cvert + ((nu + 3) & ~3);
     const int* ent = rptr + ((nu + 4) & ~3);
-    for (int u = t; u < nu; u += kBlock) rows[u] = __ldcg(a.xw + cvert[u]);
+    for (int u = t; u < nu; u += kBlock) rows[u] = Row::load_cg(xw, cvert[u]);
     Lane lane;
     lane.load(st, L, a, t);
     __syncthreads();
@@ -571,9 +585,9 @@ __device__ void run_queue(const SweepArgs& a) {
         float4 x = rows[u];
         Lane::apply(x, ent, rptr[u], rptr[u + 1], corr, a.ms);
         if (last)
-          __stcg(a.xw + cvert[u], x);
+          Row::store_cg(xw, cvert[u], x);
         else
-          rows[u] = x;
+          rows[u] = Row::round(x);
       }
       __syncthreads();
     }
@@ -583,37 +597,39 @@ __device__ void run_queue(const SweepArgs& a) {
   }
 }
 
-template <int kBlock, bool kLegacy>
+template <int kBlock, bool kLegacy, class Row = RowF32>
 __global__ void __launch_bounds__(kBlock, 1)
 edge_sweep_kernel(const SweepArgs a) {
-  run_queue<kBlock, EdgeLane<kBlock, kLegacy>>(a);
+  run_queue<kBlock, EdgeLane<kBlock, kLegacy>, Row>(a);
 }
 
-template <int kBlock, bool kLegacy>
+template <int kBlock, bool kLegacy, class Row = RowF32>
 __global__ void __launch_bounds__(kBlock, 1)
 tet_sweep_kernel(const SweepArgs a) {
-  run_queue<kBlock, TetLane<kBlock, kLegacy>>(a);
+  run_queue<kBlock, TetLane<kBlock, kLegacy>, Row>(a);
 }
 
 // One thread per output value.  Edges (arity 2): wsum[p] = c0*w0 + c1*w1.
 // Tets (arity 4): w[p, r] = c_r * w_r.  Pad lanes (vertex -1) get w = 0.
 // The counts are the within-block multiplicities under the split scheme
-// (mass splitting) and ones under the scale scheme.
+// (mass splitting) and ones under the scale scheme.  The output is f32 on
+// either table (the w read upcast, as _gather_w does).
+template <class Row>
 __global__ void w_fill_kernel(const int* __restrict__ verts,
                               const float* __restrict__ cnt,
-                              const float4* __restrict__ xw,
+                              const typename Row::T* __restrict__ xw,
                               float* __restrict__ wout, int n, int arity) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (arity == 2) {
     if (i >= n) return;
     const int v0 = verts[2 * i], v1 = verts[2 * i + 1];
-    const float w0 = v0 >= 0 ? xw[v0].w : 0.f;
-    const float w1 = v1 >= 0 ? xw[v1].w : 0.f;
+    const float w0 = v0 >= 0 ? Row::load(xw, v0).w : 0.f;
+    const float w1 = v1 >= 0 ? Row::load(xw, v1).w : 0.f;
     wout[i] = w0 * cnt[2 * i] + w1 * cnt[2 * i + 1];
   } else {
     if (i >= n * arity) return;
     const int v = verts[i];
-    const float w = v >= 0 ? xw[v].w : 0.f;
+    const float w = v >= 0 ? Row::load(xw, v).w : 0.f;
     wout[i] = w * cnt[i];
   }
 }
@@ -621,23 +637,33 @@ __global__ void w_fill_kernel(const int* __restrict__ verts,
 // ---- host side ------------------------------------------------------------
 
 // kinds: 0 edge_sweep, 1 tet_sweep, 2 legacy_edge_sweep, 3 legacy_tet_sweep
+// (the f32 table); 4 edge_sweep, 5 tet_sweep on the bf16 table
+constexpr int kKinds = 6;
+
 const void* kernel_of(int kind) {
   switch (kind) {
     case 0: return (const void*)edge_sweep_kernel<kSuper, false>;
     case 1: return (const void*)tet_sweep_kernel<kSuper, false>;
     case 2: return (const void*)edge_sweep_kernel<kLegacyWidth, true>;
     case 3: return (const void*)tet_sweep_kernel<kLegacyWidth, true>;
+    case 4: return (const void*)edge_sweep_kernel<kSuper, false, RowBF16>;
+    case 5: return (const void*)tet_sweep_kernel<kSuper, false, RowBF16>;
   }
   return nullptr;
 }
 
-int threads_of(int kind) { return kind < 2 ? kSuper : kLegacyWidth; }
+int threads_of(int kind) {
+  return kind == 2 || kind == 3 ? kLegacyWidth : kSuper;
+}
 
+// the shared rows are f32 on either table: one layout per family and width
 int smem_of(int kind, bool atab, int max_rows, int max_rec, int nstages) {
   switch (kind) {
-    case 0: return make_layout<kSuper, 2, false>(atab, max_rows, max_rec,
+    case 0:
+    case 4: return make_layout<kSuper, 2, false>(atab, max_rows, max_rec,
                                                  nstages).total;
-    case 1: return make_layout<kSuper, 4, false>(atab, max_rows, max_rec,
+    case 1:
+    case 5: return make_layout<kSuper, 4, false>(atab, max_rows, max_rec,
                                                  nstages).total;
     case 2: return make_layout<kLegacyWidth, 2, true>(atab, max_rows,
                                                       max_rec, nstages).total;
@@ -650,7 +676,7 @@ int smem_of(int kind, bool atab, int max_rows, int max_rec, int nstages) {
 // Opt each sweep kernel in to the device's largest dynamic shared memory,
 // once per process.
 cudaError_t opt_in(int kind) {
-  static bool done[4] = {false, false, false, false};
+  static bool done[kKinds] = {};
   if (done[kind]) return cudaSuccess;
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -672,14 +698,19 @@ cudaError_t opt_in(int kind) {
 // launch was accepted) so that a refused launch is reported to the caller.
 extern "C" {
 
+// bf16: 0 the f32 table (float4 rows), 1 the bf16 table (8-byte rows)
 int sbs_w_fill(const int* verts, const float* cnt, const void* xw,
-               float* wout, int n, int arity, void* stream) {
+               float* wout, int n, int arity, int bf16, void* stream) {
   const int total = arity == 2 ? n : n * arity;
   if (total > 0) {
     const int threads = 256;
-    w_fill_kernel<<<(total + threads - 1) / threads, threads, 0,
-                    (cudaStream_t)stream>>>(
-        verts, cnt, (const float4*)xw, wout, n, arity);
+    const int blocks = (total + threads - 1) / threads;
+    if (bf16)
+      w_fill_kernel<RowBF16><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+          verts, cnt, (const RowBF16::T*)xw, wout, n, arity);
+    else
+      w_fill_kernel<RowF32><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+          verts, cnt, (const RowF32::T*)xw, wout, n, arity);
   }
   return (int)cudaGetLastError();
 }

@@ -13,12 +13,23 @@ version beside it.
 A wrapper runs its plain version for tensors on the CPU and launches its
 kernel for tensors on a CUDA device (raising if the launch is refused); it
 raises for any other device.  ``<wrapper>.launches`` counts the kernel
-launches, and nothing else.  The sweeps update ``xw`` and ``lam`` in place
-(the JAX kernels return new arrays; in place saves a table copy per sweep).
+launches on the f32 table, and nothing else; ``w_fill_bf16``,
+``edge_sweep_bf16`` and ``tet_sweep_bf16`` count the launches of the same
+wrappers' bf16 instantiations.  The sweeps update ``xw`` and ``lam`` in
+place (the JAX kernels return new arrays; in place saves a table copy per
+sweep).
 
-Tables (see ``sweep_plan.GpuPlan``): ``xw`` (Vpad, 4) f32 rows x, y, z,
+Tables (see ``sweep_plan.GpuPlan``): ``xw`` (Vpad, 4) rows x, y, z,
 inverse mass in layout order; ``lam`` (NB*width,) f32 in packed order
 (width 1024 for the super-block sweeps, 128 for the legacy sweeps).
+
+The particle table is f32, or bf16 on the super-block path (the JAX
+package's ``SolverParams.xpbd_x_dtype="bfloat16"``, ``make_sweep(...,
+x_dtype=)``): every read upcasts to f32, the arithmetic is f32, and each
+block visit adds each row's f32 sum and rounds the row back to bf16 (the
+JAX kernels' per-window read-modify-write, ``_scatter_super``), so a
+revisit reads rounded positions.  w is never written.  The legacy sweeps
+take the f32 table only, as the JAX legacy kernels.
 
 On a CUDA device a sweep runs the plan's blocks as a dependency schedule
 over Q persistent CTAs (``sweep_plan.stage_plan``; Q from the card's
@@ -41,7 +52,7 @@ import numpy as np
 import torch
 
 from ..collide.primitives import cross3
-from . import count_launch
+from . import LaunchCounter, count_launch
 from . import sweep_plan as sp
 from .sweep_plan import BLOCK, LANES, GpuPlan
 
@@ -51,8 +62,12 @@ EPS_WSUM = float(np.float32(1e-20))
 SIXTH = float(np.float32(1.0 / 6.0))
 
 
-# kernel kind of sweep.cu's sbs_sweep, by (arity, block width)
-_KIND = {(2, BLOCK): 0, (4, BLOCK): 1, (2, LANES): 2, (4, LANES): 3}
+# kernel kind of sweep.cu's sbs_sweep, by (arity, block width, table dtype)
+_KIND = {(2, BLOCK, torch.float32): 0, (4, BLOCK, torch.float32): 1,
+         (2, LANES, torch.float32): 2, (4, LANES, torch.float32): 3,
+         (2, BLOCK, torch.bfloat16): 4, (4, BLOCK, torch.bfloat16): 5}
+# the particle tables the super-block kernels take (the legacy ones: f32)
+TABLE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -133,12 +148,15 @@ def card_queues(plan: GpuPlan) -> tuple:
     """(Q, stages, bytes): how many CTAs of the plan's sweep kernel the
     current CUDA device holds at once (SMs x CTAs per SM, the occupancy
     API), the shared-memory stages per CTA that fit (2, else 1) and a
-    CTA's shared memory."""
+    CTA's shared memory.  One schedule serves every table the kernel
+    takes (its f32 and bf16 instantiations share a shared-memory layout):
+    Q is the least any of them holds."""
     rows, rec = sp.stage_bounds(plan)
     nst, smem = ctypes.c_int(0), ctypes.c_int(0)
-    q = _lib().sbs_sweep_ctas(_KIND[(plan.arity, plan.width)],
-                              int(plan.atab is not None), rows, rec,
-                              ctypes.byref(nst), ctypes.byref(smem))
+    q = min(_lib().sbs_sweep_ctas(kind, int(plan.atab is not None), rows,
+                                  rec, ctypes.byref(nst), ctypes.byref(smem))
+            for (a, w, _), kind in _KIND.items()
+            if (a, w) == (plan.arity, plan.width))
     if q < 0:
         raise RuntimeError(f"sbs_sweep_ctas: CUDA error {-q}")
     if q == 0:
@@ -232,14 +250,17 @@ def _check_plan(plan: DevicePlan, device, width: int = BLOCK) -> None:
            device)
 
 
-def _check_xw(xw: torch.Tensor) -> torch.device:
+def _check_xw(xw: torch.Tensor, dtypes=TABLE_DTYPES) -> torch.device:
     if not isinstance(xw, torch.Tensor) or xw.dim() != 2 \
             or xw.shape[1] != 4:
         raise ValueError("xw must be a (Vpad, 4) tensor")
     dev = xw.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
-    _check(xw, "xw", torch.float32, xw.shape, dev)
+    if xw.dtype not in dtypes:
+        raise TypeError(f"xw: dtype {xw.dtype}, expected one of "
+                        f"{', '.join(str(d) for d in dtypes)}")
+    _check(xw, "xw", xw.dtype, xw.shape, dev)
     return dev
 
 
@@ -324,7 +345,7 @@ def _launch_sweep(name, plan: DevicePlan, xw, lam, wt, alpha, local_iters,
         nblocks=plan.num_blocks, max_rows=st.max_rows, max_rec=st.max_rec,
         nstages=st.nstages, epoch=st.epoch, alpha=float(alpha),
         local_iters=int(local_iters), ms=int(ms))
-    rc = _lib().sbs_sweep(_KIND[(plan.arity, plan.width)],
+    rc = _lib().sbs_sweep(_KIND[(plan.arity, plan.width, xw.dtype)],
                           ctypes.c_void_p(ctypes.addressof(args)),
                           _stream(xw.device))
     _raise_on(rc, name)
@@ -335,9 +356,10 @@ def _launch_sweep(name, plan: DevicePlan, xw, lam, wt, alpha, local_iters,
 # --------------------------------------------------------------------------
 
 def w_fill_plain(plan: DevicePlan, xw: torch.Tensor) -> torch.Tensor:
-    """Edges: (n,) c0*w0 + c1*w1.  Tets: (n, 4) c_r*w_r.  Pads: w = 0."""
+    """Edges: (n,) c0*w0 + c1*w1.  Tets: (n, 4) c_r*w_r.  Pads: w = 0.
+    f32 on either table (w read upcast)."""
     v = plan.verts.long()
-    w = torch.where(v >= 0, xw[:, 3][v.clamp_min(0)], 0.0)
+    w = torch.where(v >= 0, xw[:, 3].float()[v.clamp_min(0)], 0.0)
     wc = w * plan.counts
     if plan.arity == 2:
         return wc[:, 0] + wc[:, 1]
@@ -352,14 +374,16 @@ def w_fill(plan: DevicePlan, xw: torch.Tensor) -> torch.Tensor:
     n = plan.num_blocks * BLOCK
     out = torch.empty((n,) if plan.arity == 2 else (n, plan.arity),
                       dtype=torch.float32, device=dev)
+    bf16 = xw.dtype == torch.bfloat16
     rc = _lib().sbs_w_fill(_ptr(plan.verts), _ptr(plan.counts), _ptr(xw),
-                           _ptr(out), n, plan.arity, _stream(dev))
+                           _ptr(out), n, plan.arity, int(bf16), _stream(dev))
     _raise_on(rc, "w_fill")
-    count_launch(w_fill)
+    count_launch(w_fill_bf16 if bf16 else w_fill)
     return out
 
 
 w_fill.launches = 0
+w_fill_bf16 = LaunchCounter("w_fill_bf16")
 
 
 # --------------------------------------------------------------------------
@@ -378,10 +402,12 @@ def _block_csr(plan: DevicePlan, b: int):
 
 
 def _apply(xw, cv, seg, contrib):
-    """Add each CSR row's summed contributions to its vertex."""
-    acc = torch.zeros((cv.shape[0], 3), dtype=xw.dtype, device=xw.device)
+    """Add each CSR row's summed contributions (f32) to its vertex, once
+    per block visit: on the bf16 table the row rounds on the store."""
+    acc = torch.zeros((cv.shape[0], 3), dtype=torch.float32,
+                      device=xw.device)
     acc.index_add_(0, seg, contrib)
-    xw[cv, :3] = xw[cv, :3] + acc
+    xw[cv, :3] = (xw[cv, :3].float() + acc).to(xw.dtype)
 
 
 def _blocks(plan: DevicePlan, order):
@@ -393,7 +419,8 @@ def edge_sweep_plain(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
                      local_iters: int = 1, order=None) -> None:
     """On a legacy 128-wide plan ``wsum`` is None: w0 + w1 come from xw and
     the normal is d / |d|, as in the legacy kernel.  ``order``: the blocks
-    to run, in turn (default: every block in plan order)."""
+    to run, in turn (default: every block in plan order).  On a bf16 table
+    the reads upcast and each visit's store rounds (``_apply``)."""
     legacy = plan.width == LANES
     W = plan.width
     verts = plan.verts.long()
@@ -406,7 +433,7 @@ def edge_sweep_plain(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
         cv, lane, role, seg = _block_csr(plan, b)
         l = lam[sl]
         for _ in range(local_iters):
-            a0, a1 = xw[v[:, 0]], xw[v[:, 1]]
+            a0, a1 = xw[v[:, 0]].float(), xw[v[:, 1]].float()
             d = a0[:, :3] - a1[:, :3]
             dx, dy, dz = d.unbind(1)
             length = torch.sqrt(dx * dx + dy * dy + dz * dz)
@@ -422,7 +449,7 @@ def edge_sweep_plain(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
             nl = torch.where(length < EPS_LEN, 1.0, length)[:, None]
             n = d / nl if legacy else d * (1.0 / nl)
             corr = n * dlam[:, None]
-            wt = xw[cv, 3][seg]
+            wt = xw[cv, 3].float()[seg]
             f = torch.where(role == 0, wt, -wt)
             _apply(xw, cv, seg, corr[lane] * f[:, None])
         lam[sl] = l
@@ -447,7 +474,7 @@ def tet_sweep_plain(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
         cv, lane, role, seg = _block_csr(plan, b)
         l = lam[sl]
         for _ in range(local_iters):
-            a = [xw[v[:, k]] for k in range(4)]
+            a = [xw[v[:, k]].float() for k in range(4)]
             pa, pb, pc, pd = (t[:, :3] for t in a)
             if legacy:
                 w = torch.stack([t[:, 3] for t in a], 1)        # (W, 4)
@@ -476,7 +503,7 @@ def tet_sweep_plain(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
             s = dlam[:, None].expand(-1, 4) if plan.split else w * dlam[:, None]
             contrib = (g * s[..., None])[lane, role]
             if plan.split:           # mass splitting: plain w of the target
-                contrib = contrib * xw[cv, 3][seg][:, None]
+                contrib = contrib * xw[cv, 3].float()[seg][:, None]
             _apply(xw, cv, seg, contrib)
         lam[sl] = l
 
@@ -493,19 +520,21 @@ def _check_sweep(plan, xw, lam, wtab, wshape):
 def edge_sweep(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
                wsum: torch.Tensor, alpha: float,
                local_iters: int = 1) -> None:
-    """One distance sweep over every block, in place on xw and lam.
-    alpha: compliance / sdt^2 (f32-exact); with a per-constraint table
-    (plan.atab) the per-lane alpha is alpha * atab."""
+    """One distance sweep over every block, in place on xw (f32 or bf16)
+    and lam.  alpha: compliance / sdt^2 (f32-exact); with a per-constraint
+    table (plan.atab) the per-lane alpha is alpha * atab."""
     if plan.arity != 2:
         raise ValueError("edge_sweep needs an edge (arity 2) plan")
     dev = _check_sweep(plan, xw, lam, wsum, (plan.num_blocks * BLOCK,))
     if dev.type == "cpu":
         return edge_sweep_plain(plan, xw, lam, wsum, alpha, local_iters)
     _launch_sweep("edge_sweep", plan, xw, lam, wsum, alpha, local_iters, 0)
-    count_launch(edge_sweep)
+    count_launch(edge_sweep_bf16 if xw.dtype == torch.bfloat16
+                 else edge_sweep)
 
 
 edge_sweep.launches = 0
+edge_sweep_bf16 = LaunchCounter("edge_sweep_bf16")
 
 
 def tet_sweep(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
@@ -519,10 +548,12 @@ def tet_sweep(plan: DevicePlan, xw: torch.Tensor, lam: torch.Tensor,
         return tet_sweep_plain(plan, xw, lam, wtab, alpha, local_iters)
     _launch_sweep("tet_sweep", plan, xw, lam, wtab, alpha, local_iters,
                   int(plan.split))
-    count_launch(tet_sweep)
+    count_launch(tet_sweep_bf16 if xw.dtype == torch.bfloat16
+                 else tet_sweep)
 
 
 tet_sweep.launches = 0
+tet_sweep_bf16 = LaunchCounter("tet_sweep_bf16")
 
 
 # --------------------------------------------------------------------------
@@ -536,7 +567,7 @@ tet_sweep.launches = 0
 def _check_legacy(plan, xw, lam, arity, name):
     if plan.arity != arity:
         raise ValueError(f"{name} needs an arity-{arity} plan")
-    dev = _check_xw(xw)
+    dev = _check_xw(xw, (torch.float32,))
     _check_plan(plan, dev, LANES)
     _check(lam, "lam", torch.float32, (plan.num_blocks * LANES,), dev)
     return dev

@@ -64,6 +64,37 @@ def _at_least(t: torch.Tensor, lo: float) -> torch.Tensor:
     return torch.maximum(t, torch.full_like(t, lo))
 
 
+# ---- the stages of a substep (the coloured step's; perf/profile.py times
+# them one by one)
+
+
+def predict(x, v, pinned, gravity, sdt):
+    """Semi-implicit Euler (Sim.cpp:178-185), pinned rows held still:
+    (predicted positions, velocities)."""
+    v = torch.where(pinned, v, v + gravity * sdt)
+    return torch.where(pinned, x, x + v * sdt), v
+
+
+def project_ground(xs, w, ground_y: float, differentiable: bool = False):
+    """The y clamp on free rows (Sim.cpp:187-195); ``differentiable``: as
+    ``jnp.maximum`` (a tie splits the gradient)."""
+    y, gy = xs[:, 1], f32(ground_y)
+    up = _at_least(y, gy) if differentiable else y.clamp_min(gy)
+    return torch.stack([xs[:, 0], torch.where(w != 0.0, up, y), xs[:, 2]],
+                       1)
+
+
+def commit(xs, x, pinned, inv_dt, params: SolverParams, keep):
+    """Velocity update and ground friction (Sim.cpp:197-222): (positions,
+    velocities).  keep: 1 - friction (a float or a 0-dim tensor)."""
+    vel = (xs - x) * inv_dt
+    if params.ground_enabled:
+        on_g = xs[:, 1] <= f32(params.ground_y + 1e-6)
+        vx = torch.where(on_g, vel[:, 0] * keep, vel[:, 0])
+        vz = torch.where(on_g, vel[:, 2] * keep, vel[:, 2])
+        vy = torch.where(on_g & (vel[:, 1] < 0.0), 0.0, vel[:, 1])
+        vel = torch.stack([vx, vy, vz], 1)
+    return torch.where(pinned, x, xs), torch.where(pinned, 0.0, vel)
 
 
 def edge_dlambda(x, w, i0, i1, rest, lam, alpha):
@@ -300,10 +331,8 @@ class ColouredStep:
         if self.has_tets:
             xs = self._tets(xs, w, lam["tets"], t_alpha)
         if self.params.ground_enabled:
-            y, gy = xs[:, 1], f32(self.params.ground_y)
-            up = _at_least(y, gy) if self.differentiable else y.clamp_min(gy)
-            xs = torch.stack([xs[:, 0], torch.where(w != 0.0, up, y),
-                              xs[:, 2]], 1)
+            xs = project_ground(xs, w, self.params.ground_y,
+                                self.differentiable)
         return xs
 
     # ---- stepping ---------------------------------------------------------
@@ -403,9 +432,7 @@ class ColouredStep:
 
         x, v = state.x, state.v
         for _ in range(ss):
-            # predict (Sim.cpp:178-185)
-            v = torch.where(pinned, v, v + grav * sdt)
-            xs = torch.where(pinned, x, x + v * sdt)
+            xs, v = predict(x, v, pinned, grav, sdt)
             for _ in range(p.iterations):
                 if graphed:
                     b["x"].copy_(xs)
@@ -419,16 +446,7 @@ class ColouredStep:
                         xs = self._graphs.run("contact", contact)
                 if not graphed and self.contact is not None:
                     xs = self.contact(xs, w)
-            # commit (Sim.cpp:197-222)
-            vel = (xs - x) * inv_dt
-            if p.ground_enabled:
-                on_g = xs[:, 1] <= f32(p.ground_y + 1e-6)
-                vx = torch.where(on_g, vel[:, 0] * keep, vel[:, 0])
-                vz = torch.where(on_g, vel[:, 2] * keep, vel[:, 2])
-                vy = torch.where(on_g & (vel[:, 1] < 0.0), 0.0, vel[:, 1])
-                vel = torch.stack([vx, vy, vz], 1)
-            v = torch.where(pinned, 0.0, vel)
-            x = torch.where(pinned, x, xs)
+            x, v = commit(xs, x, pinned, inv_dt, p, keep)
 
         lam = {fam: (torch.cat(l) if isinstance(l, list) else l)[
             self._fam[fam]["inv"]] for fam, l in lam.items()}

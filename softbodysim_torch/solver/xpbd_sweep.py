@@ -12,13 +12,25 @@ sweeps (scale scheme only).  No segmentation: the particle table lives in
 device memory, not in a bounded scratchpad.
 
 Internal layout (one device):
-  xw : (Vpad, 4) f32 -- x* xyz + inverse mass, rows in layout order
+  xw : (Vpad, 4) f32 or bf16 -- x* xyz + inverse mass, rows in layout order
   xp : (Vpad, 3) f32 -- committed positions
   vv : (Vpad, 3) f32 -- velocities
 Layout slot i holds vertex perm[i]; dead slots (perm == V: tail padding and
 component-alignment gaps) sit at the origin with w = 0 and never move.  The
 permutation and the packed lambda order are applied only at the public
 SimState boundary (``pack_state`` / ``unpack_state``).
+
+The bf16 table (``SolverParams.xpbd_x_dtype="bfloat16"``, super-blocks
+only), as ``xpbd_pallas.py:583-700`` runs it: xw holds bf16 rows (the
+sweep kernels' bf16 instantiations), xp and vv stay f32.  Predict keeps
+the substep's f32 prediction in the carry (``xs_pred``) and writes it
+rounded into the table; the ground clamp, the colliders and the contact
+stages work on the table's f32 upcast and round where they write; commit
+takes ``xs_pred + (table - bf16(xs_pred))`` as the position, so only the
+constraint and collision corrections round, never the integration.  Valid
+for scenes under about 100 rest lengths per axis (the JAX package's
+envelope: a bf16 ulp of the coordinates well under an edge's rest
+length).
 
 Not differentiable: the kernels write the tables in place, unseen by
 autograd, so a step handed a tensor that requires grad raises
@@ -171,7 +183,8 @@ def resolve_block_scheme(params: SolverParams, legacy: bool = False) -> dict:
 class Carry(NamedTuple):
     """Internal run state: layout tables, packed lambdas and the streamed
     inverse-mass tables (super-blocks: filled once per pack, masses never
-    change; None on the legacy path, whose kernels read w from xw)."""
+    change; None on the legacy path, whose kernels read w from xw); on the
+    bf16 table the substep's f32 prediction (Vpad, 3) (None on f32)."""
 
     xw: torch.Tensor
     xp: torch.Tensor
@@ -180,6 +193,7 @@ class Carry(NamedTuple):
     lam_t: torch.Tensor
     w_e: Optional[torch.Tensor]
     w_t: Optional[torch.Tensor]
+    xs_pred: Optional[torch.Tensor] = None
 
 
 class SweepHost(NamedTuple):
@@ -231,11 +245,13 @@ class SweepStep:
 
     superblocks: 1024-wide super-blocks (default) or the legacy 128-wide
     blocks (scale scheme, omega 1, one visit, f32 table; anything else
-    raises ValueError).  colliders: a make-time collider set, applied after
-    the ground clamp in every iteration; ``colliders_rt`` moves it per
-    call.  edge_c / tet_c: optional per-constraint compliance (public
-    order); the compliance scalars then scale them.  host: the make's host
-    part, ``sweep_host`` of the same arguments (default: built here)."""
+    raises ValueError).  ``params.xpbd_x_dtype``: the particle table's
+    dtype, "float32" or "bfloat16" (module docstring).  colliders: a
+    make-time collider set, applied after the ground clamp in every
+    iteration; ``colliders_rt`` moves it per call.  edge_c / tet_c:
+    optional per-constraint compliance (public order); the compliance
+    scalars then scale them.  host: the make's host part, ``sweep_host``
+    of the same arguments (default: built here)."""
 
     backend = "sweep"
 
@@ -253,13 +269,11 @@ class SweepStep:
                 "scheme at omega 1 with one visit per block on the float32 "
                 "table (use superblocks=True for split / omega / "
                 "local_iters / xpbd_x_dtype)")
-        if params.xpbd_x_dtype == "bfloat16":
-            raise NotImplementedError(
-                "xpbd_x_dtype='bfloat16' is not ported yet (ROADMAP.md "
-                "queue 1, 'bfloat16 table')")
-        if params.xpbd_x_dtype != "float32":
+        dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+        if params.xpbd_x_dtype not in dtypes:
             raise ValueError(f"unknown xpbd_x_dtype {params.xpbd_x_dtype!r}"
                              " (float32|bfloat16)")
+        self.x_dtype = dtypes[params.xpbd_x_dtype]
         dev = self.device = resolve_device(device)
         self.params = params
         self.superblocks = bool(superblocks)
@@ -325,7 +339,7 @@ class SweepStep:
                 self._perm].contiguous()
 
         xw = torch.cat([rows(state.x_star), rows(state.inv_mass)[:, None]],
-                       1).contiguous()
+                       1).to(self.x_dtype).contiguous()
 
         def pack_lam(fam, lam):
             plan = self.device_plans.get(fam)
@@ -341,11 +355,14 @@ class SweepStep:
             return (sw.w_fill(plan, xw)
                     if plan is not None and self.superblocks else None)
 
+        xp = rows(state.x)
         return Carry(
-            xw=xw, xp=rows(state.x), vv=rows(state.v),
+            xw=xw, xp=xp, vv=rows(state.v),
             lam_e=pack_lam("edges", state.edge_lambda),
             lam_t=pack_lam("tets", state.tet_lambda),
-            w_e=fill("edges"), w_t=fill("tets"))
+            w_e=fill("edges"), w_t=fill("tets"),
+            xs_pred=(torch.empty_like(xp)
+                     if self.x_dtype == torch.bfloat16 else None))
 
     def unpack_state(self, carry: Carry, state: SimState) -> SimState:
         """Carry -> public state (``state`` supplies inv_mass and the
@@ -353,7 +370,8 @@ class SweepStep:
         carry."""
         o2n = self._old2new
         return SimState(
-            x=carry.xp[o2n], v=carry.vv[o2n], x_star=carry.xw[o2n, :3],
+            x=carry.xp[o2n], v=carry.vv[o2n],
+            x_star=carry.xw[o2n, :3].float(),
             inv_mass=state.inv_mass,
             edge_lambda=(carry.lam_e[self._pos_of["edges"]]
                          if self.has_edges else state.edge_lambda),
@@ -403,10 +421,14 @@ class SweepStep:
     def _substep(self, c: Carry, free, sdt, inv_dt, e_alpha, t_alpha,
                  packed):
         p = self.params
-        xw, xp, vv = c.xw, c.xp, c.vv
-        # predict: semi-implicit Euler; pinned rows hold still
+        xw, xp, vv, pred = c.xw, c.xp, c.vv, c.xs_pred
+        # predict: semi-implicit Euler; pinned rows hold still (on the bf16
+        # table the f32 prediction is kept and the table rounds it)
         vv.copy_(torch.where(free, vv + self._gravity * sdt, vv))
-        xw[:, :3] = torch.where(free, xp + vv * sdt, xp)
+        xs = torch.where(free, xp + vv * sdt, xp)
+        if pred is not None:
+            pred.copy_(xs)
+        xw[:, :3] = xs
         ep, tp = self.device_plans.get("edges"), self.device_plans.get("tets")
         ground_y = f32(p.ground_y)
         for _ in range(p.iterations):
@@ -414,15 +436,21 @@ class SweepStep:
                 self._edge_sweep(ep, c, e_alpha)
             if tp is not None:
                 self._tet_sweep(tp, c, t_alpha)
+            # the stages below read the table's f32 upcast and round where
+            # they write (identities on the f32 table)
             if p.ground_enabled:          # axis-aligned y clamp
-                y = xw[:, 1]
+                y = xw[:, 1].float()
                 xw[:, 1] = torch.where(free[:, 0], y.clamp_min(ground_y), y)
             if packed is not None:        # free rows only; dead slots w = 0
                 kc.collide(xw, packed, kc.XPBD_GROUND)
             if self.contact is not None:  # self, then surface collision
-                xw[:, :3] = self.contact(xw[:, :3], xw[:, 3])
-        # commit: velocity update + ground friction
+                xw[:, :3] = self.contact(xw[:, :3].float(),
+                                         xw[:, 3].float())
+        # commit: velocity update + ground friction; on the bf16 table the
+        # f32 prediction plus the table's rounded correction
         xs = xw[:, :3]
+        if pred is not None:
+            xs = pred + (xs.float() - pred.to(xw.dtype).float())
         vel = (xs - xp) * inv_dt
         if p.ground_enabled:
             on_g = xs[:, 1] <= f32(p.ground_y + 1e-6)

@@ -53,6 +53,11 @@ colliders (the stand-alone collide kernel, radius 0, free rows only) and
 the contact stages (``solver/global_stages.py``) run on each rank's rows
 inside every iteration, as on one device.
 
+The particle table is f32 whatever ``SolverParams.xpbd_x_dtype`` says:
+the JAX sharded step never reads that knob (its ``make_sweep`` call passes
+no ``x_dtype``), and neither does this one, beyond refusing an unknown
+value.  The bf16 table is the single-device sweep step's.
+
 Not differentiable, as the single-device sweep step (``select.
 refuse_grad``).
 """
@@ -441,11 +446,9 @@ class XpbdSweepShardedStep(ShardedRows):
                 "are single-device only; the window-sharded path at D > 1 "
                 "runs the scale scheme (leave the xpbd_block_* knobs at "
                 "their defaults)")
-        if params.xpbd_x_dtype == "bfloat16":
-            raise NotImplementedError(
-                "xpbd_x_dtype='bfloat16' is not ported yet (ROADMAP.md "
-                "queue 1, 'bfloat16 table')")
-        if params.xpbd_x_dtype != "float32":
+        # the knob is checked, not read: the table is f32 (module
+        # docstring)
+        if params.xpbd_x_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown xpbd_x_dtype {params.xpbd_x_dtype!r}"
                              " (float32|bfloat16)")
         # D = 1: the single-device step's layout and plans

@@ -178,13 +178,14 @@ def test_cuda_without_card_raises(monkeypatch):
     "self_collision", "colliders_rt"])
 def test_unported_features_raise(case, tmp_path):
     """What is not ported raises NotImplementedError pointing at ROADMAP.md.
-    Cases ported since ("colliders" on the sweep backend, the coloured
-    "gather" backend, "auto" on a small scene, the "jacobi" dialect with
-    self collision and "self_collision" on the sweep backend) now step; a
-    runtime collider set without a make-time template ("colliders_rt") is
-    refused.  "mesh" is ported for the kernel-sharded steps: on a gloo
-    group of one it steps to the single-device Engine's bits, and the
-    vertex-sharded modes ('auto' on a small scene) still raise."""
+    Cases ported since ("colliders" on the sweep backend, the "bfloat16"
+    particle table on it, the coloured "gather" backend, "auto" on a small
+    scene, the "jacobi" dialect with self collision and "self_collision"
+    on the sweep backend) now step; a runtime collider set without a
+    make-time template ("colliders_rt") is refused.  "mesh" is ported for
+    the kernel-sharded steps: on a gloo group of one it steps to the
+    single-device Engine's bits, and the vertex-sharded modes ('auto' on a
+    small scene) still raise."""
     topo = _topo()
     kw = {}
     params = _sweep_params()
@@ -203,24 +204,21 @@ def test_unported_features_raise(case, tmp_path):
         return _check_mesh_of_one(topo, params, tmp_path)
     elif case == "self_collision":
         params = params.replace(self_collision=True)
-    if case in ("colliders", "gather", "auto_small", "jacobi",
-                "self_collision"):
-        eng = sbt.Engine(topo, params, device="cpu", **kw).run(2, DT)
-        assert np.isfinite(eng.positions()).all()
-        assert eng.backend == ("sweep" if case in ("colliders",
-                                                   "self_collision")
-                               else "gather")
-        if case in ("jacobi", "self_collision"):
-            assert eng._raw_step.contact.self_fn is not None
-        return
     if case == "colliders_rt":
         eng = sbt.Engine(topo, params, device="cpu")
         with pytest.raises(ValueError, match="template"):
             eng.step(DT, colliders_rt=sbt.Colliders.build(
                 [sbt.Colliders.sphere((0.0, 0.0, 0.0), 0.1)], device="cpu"))
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sbt.Engine(topo, params, device="cpu", **kw)
+    eng = sbt.Engine(topo, params, device="cpu", **kw).run(2, DT)
+    assert np.isfinite(eng.positions()).all()
+    assert eng.backend == ("sweep" if case in ("colliders", "bfloat16",
+                                               "self_collision")
+                           else "gather")
+    if case == "bfloat16":
+        assert eng._carry.xw.dtype == torch.bfloat16
+    if case in ("jacobi", "self_collision"):
+        assert eng._raw_step.contact.self_fn is not None
 
 
 def _check_mesh_of_one(topo, params, tmp_path):

@@ -203,6 +203,149 @@ def test_schedule_matches_one_cta_bitwise(family, variant, cuda_device):
 
 
 # --------------------------------------------------------------------------
+# The bf16 particle table (SolverParams.xpbd_x_dtype="bfloat16"): the w
+# fill, the super-block sweeps and the collide stage instantiated on 8-byte
+# rows.  The kernel and the plain version sum in f32 in different orders
+# (CSR rows against index_add_), so a row may round one bf16 ulp apart:
+# coordinates within 1 bf16 ulp of their magnitude, at least 90% of the
+# rows bit-equal; the w fill and the schedule against one CTA bit for bit.
+# --------------------------------------------------------------------------
+
+BF16_ROWS_EQUAL = 0.9
+BF16_COUNTS = ("w_fill_bf16", "edge_sweep_bf16", "tet_sweep_bf16",
+               "collide_bf16")
+
+
+def _assert_bf16_close(got, want):
+    a, b = got[:, :3].float(), want[:, :3].float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    assert ((a - b).abs() <= ulp).all(), ((a - b).abs() / ulp).max()
+    equal = (got == want).all(1).float().mean().item()
+    assert equal >= BF16_ROWS_EQUAL, equal
+    assert torch.equal(got[:, 3], want[:, 3])       # w is never written
+
+
+def _moved_counts(before):
+    after = launch_counts()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["split", "split_k2"])
+@pytest.mark.parametrize("family", ["edges", "tets"])
+def test_bf16_kernels_match_plain_on_card(family, scheme, cuda_device):
+    dplan, xw, k = _plan_and_table(family, scheme, cuda_device)
+    xw = xw.to(torch.bfloat16)
+    fn, plain = ((ksw.edge_sweep, ksw.edge_sweep_plain) if family == "edges"
+                 else (ksw.tet_sweep, ksw.tet_sweep_plain))
+    lam0 = torch.zeros(dplan.num_blocks * tsp.BLOCK, device=cuda_device)
+    xa, la, xb, lb = xw.clone(), lam0.clone(), xw.clone(), lam0.clone()
+    before = launch_counts()
+    wk = ksw.w_fill(dplan, xw)
+    fn(dplan, xa, la, wk, 1e-2, k)
+    assert _moved_counts(before) == {"w_fill_bf16": 1,
+                                     f"{fn.__name__}_bf16": 1}
+    assert wk.dtype == torch.float32
+    assert torch.equal(wk, ksw.w_fill_plain(dplan, xw))
+    plain(dplan, xb, lb, wk, 1e-2, k)
+    torch.cuda.synchronize()
+    assert xa.dtype == torch.bfloat16 and not torch.equal(xa, xw)
+    _assert_bf16_close(xa, xb)
+    torch.testing.assert_close(la, lb, rtol=0,
+                               atol=1e-5 * lb.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["edges", "tets"])
+def test_bf16_schedule_matches_one_cta_bitwise(family, cuda_device):
+    """The bf16 sweep over the card's Q CTAs against one CTA: 20 launches
+    each from the same table, every launch's rows and lambdas equal bit
+    for bit."""
+    topo = sbt.meshes.tet_cube(20, 20, 20, size=1.0, center=(0.0, 0.8, 0.0))
+    V = topo.num_particles
+    rng = np.random.default_rng(3)
+    cons, rest, lcap = ((topo.edges, topo.edge_rest, 2) if family == "edges"
+                        else (topo.tets, topo.tet_rest_vol, 3))
+    cons = cons.astype(np.int64)
+    g = tsp.build_gpu_plan(tsp.pack_superblocks(cons, rest, layer_cap=lcap),
+                           cons, scheme="split",
+                           omega=1.5 if family == "edges" else 2.2)
+    many = ksw.to_device(g, cuda_device)
+    one = ksw.to_device(g, cuda_device, queues=1)
+    xw = torch.zeros((-(-V // tsp.LANES) * tsp.LANES, 4))
+    xw[:V, :3] = torch.from_numpy(
+        (topo.vertices + rng.normal(0.0, 0.01, (V, 3))).astype(np.float32))
+    xw[:V, 3] = sbt.init_state(topo, device="cpu").inv_mass
+    xw = xw.to(cuda_device, torch.bfloat16)
+    wt = ksw.w_fill(many, xw)
+    fn = ksw.edge_sweep if family == "edges" else ksw.tet_sweep
+    outs = []
+    for p in (many, one):
+        x = xw.clone()
+        lam = torch.zeros(g.num_blocks * g.width, device=cuda_device)
+        snaps = []
+        for _ in range(20):
+            fn(p, x, lam, wt, 1e-2, 1)
+            snaps.append(torch.cat([x.float().reshape(-1), lam]))
+        outs.append(torch.stack(snaps))
+    torch.cuda.synchronize()
+    ksw.raise_on_timeouts()
+    assert many.staged.queues > 1
+    assert not torch.equal(outs[1][0][:xw.numel()], xw.float().reshape(-1))
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+def test_bf16_collide_matches_plain_on_card(cuda_device):
+    _, xw, rng = _jacobi_table(SIZES["medium"], cuda_device)
+    xw[:, :3] = torch.from_numpy(rng.uniform(
+        -0.8, 0.8, (xw.shape[0], 3)).astype(np.float32)).to(cuda_device)
+    xw = xw.to(torch.bfloat16)
+    packed = kc.pack_colliders(sbt.Colliders.build([
+        sbt.Colliders.sphere((0.0, 0.2, 0.0), 0.4),
+        sbt.Colliders.box((0.5, 0.0, -0.3), (0.3, 0.2, 0.25))],
+        device=cuda_device))
+    xa = xw.clone()
+    before = launch_counts()
+    kc.collide(xa, packed, kc.XPBD_GROUND)
+    assert _moved_counts(before) == {"collide_bf16": 1}
+    xb = kc.collide_plain(xw, packed, kc.XPBD_GROUND)
+    torch.cuda.synchronize()
+    assert xa.dtype == xb.dtype == torch.bfloat16
+    assert (xa.float() - xw.float()).abs().max() > 0.01
+    _assert_bf16_close(xa, xb)
+    pinned = xw[:, 3] == 0
+    assert torch.equal(xa[pinned], xw[pinned])
+
+
+@pytest.mark.cuda
+def test_bf16_engine_on_card_matches_cpu(cuda_device):
+    """The north star's configuration shape (8 x 1) on tet_cube(7) with a
+    box under it, on the bf16 table: only the bf16 kernels launch, and 10
+    steps on the card stay within 1e-2 m of the CPU's (the f32 engines'
+    allowance for chaotic growth, test_torch_engine.py)."""
+    topo = sbt.meshes.tet_cube(7, 7, 7, size=0.5, center=(0.0, 0.5, 0.0))
+    params = sbt.SolverParams(dialect="xpbd", substeps=8, iterations=1,
+                              xpbd_backend="sweep", xpbd_x_dtype="bfloat16")
+    runs = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        box = sbt.Colliders.build(
+            [sbt.Colliders.box((0.0, 0.05, 0.0), (0.4, 0.05, 0.4))],
+            device=dev)
+        before = launch_counts()
+        eng = sbt.Engine(topo, params, colliders=box, device=dev).run(10, DT)
+        runs[dev.type] = (eng.positions(), _moved_counts(before))
+    assert runs["cpu"][1] == {}
+    assert runs["cuda"][1] == {"w_fill_bf16": 2, "edge_sweep_bf16": 80,
+                               "tet_sweep_bf16": 80, "collide_bf16": 80}
+    x_card, x_cpu = runs["cuda"][0], runs["cpu"][0]
+    assert np.isfinite(x_card).all()
+    assert x_card[:, 1].min() < 0.2                  # it reached the box
+    np.testing.assert_allclose(x_card, x_cpu, rtol=0, atol=1e-2)
+
+
+# --------------------------------------------------------------------------
 # Jacobi passes and the fused collide stage
 # --------------------------------------------------------------------------
 

@@ -9,8 +9,8 @@ plan of tet_cube(47), checks one pass from a predicted, perturbed state
 against the plain version (1e-5 m, counts equal), and prints the plan
 (tiles, the largest tile, its shared memory, the constraints listed), the
 CTAs per SM, and the kernel's device time per call (torch.profiler over
-20 launches, ``chip_smoke.kernel_ms``), one JSON line each, beside the
-card's name and power limit.
+20 launches, ``softbodysim_torch.perf.profile.kernel_ms``), one JSON line
+each, beside the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import chip_smoke  # noqa: E402
 import softbodysim_torch as sbt  # noqa: E402
 from softbodysim_torch.kernels import jacobi as kj  # noqa: E402
 from softbodysim_torch.kernels import jacobi_plan  # noqa: E402
+from softbodysim_torch.perf.profile import kernel_ms  # noqa: E402
 
 
 def main(caps) -> int:
@@ -77,8 +78,7 @@ def main(caps) -> int:
             err = (xa - xb).abs().max().item()
             if not (err <= chip_smoke.PASS_TOL and torch.equal(ca, cb)):
                 raise AssertionError(f"{name} at cap {cap}: {err}")
-            ms = chip_smoke.kernel_ms(lambda: fn(plan, xin, xa, kd, omd),
-                                      20)
+            ms = kernel_ms(lambda: fn(plan, xin, xa, kd, omd), 20)
             tl = plan.tiles
             print(json.dumps({
                 "cap": cap, "kernel": name, "ms": ms, "max_abs_err": err,

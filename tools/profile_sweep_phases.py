@@ -56,7 +56,8 @@ STAMPS = (
     ("    // the stage is refilled once the stager passes", 3, False),
     ("    lane.load(st, L, a, t);\n    __syncthreads();\n", 4, True),
     ("      lane.visit(rows, corr, t);\n      __syncthreads();\n", 5, True),
-    ("          rows[u] = x;\n      }\n      __syncthreads();\n", 6, True),
+    ("          rows[u] = Row::round(x);\n      }\n      __syncthreads();\n",
+     6, True),
     ("    if (release && t == kStager) st_release(a.flags + b, a.epoch);\n",
      7, True),
 )
