@@ -212,6 +212,29 @@ L. The kernel-sharded steps (``Engine(mesh=...)``), after phase K and
    and the transport, and a {"sharded": {...}} line (with the card's
    name and power limit). The D = 2 ranks share one card: not a
    scale-out figure.
+O. The vertex-sharded, data- and constraint-parallel modes
+   (``parallel/{sharding,constraint,vertex}.py``) and the mesh gradients
+   (``diff.make_rollout(mesh=)``), after phase L and before phase M and
+   any profiler.  O1 (D = 1, an NCCL group of one in this process) and O2
+   (D = 2, two spawned ranks on a gloo group sharing the card): the north
+   star on ``Engine(mesh=...)`` with xpbd 8 x 1 'gather' (the xpbd
+   vertex-sharded step) and phase 4's jacobi 2 x 6 'gather' on the floor
+   box (the jacobi vertex-sharded step, the collide kernel on every
+   rank), MODES_STEPS steps from phase L's seeded velocities, against the
+   single-device Engine on the same backend (xpbd 1e-5 m and lambdas
+   1e-4, jacobi 2e-5 m), run twice the same bits, every rank the same
+   bits, constraint corrections of at least 10x the limit.  O3: bench.py's
+   batched_128x_jacobi (128 x tet_cube(10)) through
+   make_data_parallel_step (d = 1, 2) and make_mesh_sharded_step ((1, 1),
+   (2, 1), (1, 2)), and 8 xpbd scenes through make_xpbd_sharded_step
+   ((1, 1), (1, 2)), against the batched step (1e-5 m).  O4: one
+   value_and_grad per dialect of a MODES_STEPS-step mesh rollout at D = 1
+   against the single-device gradient of phase K's configurations (1e-3
+   of the largest entry).  Prints ms/step, the halo mode and bytes per
+   sweep or colour against the full gather, the host's share inside
+   collectives and a {"modes": {...}} line (with the card's name and
+   power limit).  The D = 2 ranks share one card: not a scale-out
+   figure.
 M. The bf16 particle table (``SolverParams.xpbd_x_dtype="bfloat16"``),
    after phase L and before any profiler runs.  M1: the bf16 w fill,
    sweeps and collide stage against their plain versions on phase 11's
@@ -356,8 +379,9 @@ COLOURED_STEPS = 24
 # step 5; from step 8 on, as its sliver tets land, two runs that differ in
 # the last bits part by millimetres (the CPU's 'gather' Engine and one
 # started one ulp away, which phase 4 runs beside the card at every step:
-# cpu_spread_engines, ball_tol)
-BALL_STEPS = 10
+# cpu_spread_engines, ball_tol); 7 steps keep three in contact and hold
+# the smoke's wall time near 900 s
+BALL_STEPS = 7
 
 
 def card_line() -> str:
@@ -3428,6 +3452,389 @@ def segment_repeat(sbt, topo, device) -> dict:
 
 
 # --------------------------------------------------------------------------
+# Phase O: the vertex-sharded, data-parallel and constraint-parallel modes
+# --------------------------------------------------------------------------
+
+# steps of each phase O run (and of its timed repeat)
+MODES_STEPS = 4
+# the xpbd vertex-sharded step against the single-device coloured step:
+# positions (m) and lambdas; the jacobi vertex-sharded step (m)
+MODES_X_TOL = 1e-5
+MODES_LAM_TOL = 1e-4
+MODES_J_TOL = 2e-5
+# O3: the data- and constraint-parallel steps against the batched step (m)
+MODES_BATCH_TOL = 1e-5
+# O4: a mesh rollout's gradient against the single-device one, relative
+# to the latter's largest entry
+MODES_GRAD_TOL = 1e-3
+# O3's scenes: bench.py's batched_128x_jacobi, and an xpbd batch
+MODES_CUBE = dict(nx=10, ny=10, nz=10, size=0.8, center=(0.0, 1.0, 0.0))
+MODES_JACOBI_B, MODES_XPBD_B = 128, 8
+
+
+def modes_params(sbt) -> dict:
+    """O1 / O2's two paths: the north star on the xpbd vertex-sharded step
+    (8 x 1, 'gather') and phase 4's configuration on the jacobi
+    vertex-sharded step (2 x 6, 'gather', the floor box)."""
+    return {"xpbd": (sbt.SolverParams(dialect="xpbd", substeps=8,
+                                      iterations=1, xpbd_backend="gather"),
+                     False),
+            "jacobi": (sbt.SolverParams(**{**JACOBI,
+                                           "jacobi_backend": "gather"}),
+                       True)}
+
+
+def modes_halo(step) -> dict:
+    """The vertex-sharded step's halo: its mode and bytes per exchange
+    against the full gather's."""
+    inner = getattr(step, "inner", step)
+    if hasattr(inner, "comm_bytes_per_sweep"):
+        return {"mode": inner.halo_mode, "per": "sweep",
+                "bytes": inner.comm_bytes_per_sweep,
+                "full_gather_bytes": inner.comm_bytes_full_gather}
+    return {"mode": inner.halo_mode, "per": "colour",
+            "bytes": inner.comm_bytes_per_color,
+            "full_gather_bytes": inner.full_gather_bytes}
+
+
+def run_modes(sbt, topo, device, mesh) -> dict:
+    """One rank's O1 / O2: each path's Engine(mesh=...) run MODES_STEPS
+    steps from seeded velocities with the launch counts set to 0 just
+    before and read just after, then again from the same start, timed
+    (host clock, ending in a synchronize; the gathers of the public state
+    included), the host's seconds inside collectives over it."""
+    import torch_sharded_ranks as tr
+
+    out = {}
+    for name, (params, boxed) in modes_params(sbt).items():
+        cols = floor_box(sbt, device) if boxed else None
+        t0 = time.perf_counter()
+        eng = sbt.Engine(topo, params, colliders=cols, mesh=mesh,
+                         device=device)
+        build_s = time.perf_counter() - t0
+        s0 = eng.state = tr.kicked(eng, SEED, SHARDED_V_SIGMA)
+        reset_counts()
+        eng.run(MODES_STEPS, DT)
+        first = eng.state
+        eng.block()
+        counts = read_counts()
+        ax = eng._raw_step.axis
+        ax.host_seconds = 0.0
+        eng.state = s0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eng.run(MODES_STEPS, DT)
+        again = eng.state
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        out[name] = {
+            "x": first.x.cpu().numpy(),
+            "edge_lambda": first.edge_lambda.cpu().numpy(),
+            "tet_lambda": first.tet_lambda.cpu().numpy(),
+            "same_bits": all(torch.equal(getattr(first, f),
+                                         getattr(again, f))
+                             for f in ("x", "v", "edge_lambda",
+                                       "tet_lambda")),
+            "counts": counts, "ms": wall * 1e3 / MODES_STEPS,
+            "build_s": build_s,
+            "work": float(np.abs(first.x.double().cpu().numpy()
+                                 - tr.ballistic(s0, params,
+                                                MODES_STEPS)).max()),
+            "collective_host_share": ax.host_seconds / wall,
+            "transport": ax.transport(first.x), "backend": eng.backend,
+            "halo": modes_halo(eng._raw_step)}
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def batched_modes(sbt, device, world: int) -> dict:
+    """One rank's O3: bench.py's batched_128x_jacobi through
+    make_data_parallel_step (d = world) and make_mesh_sharded_step
+    ((1, 1) at one rank; (2, 1) and (1, 2) at two), and 8 xpbd scenes
+    through make_xpbd_sharded_step ((1, 1); (1, 2)): MODES_STEPS steps
+    each, all but the first (which builds the union's step) timed (host
+    clock, ending in a synchronize), the whole batch gathered back."""
+    from softbodysim_torch.parallel import (
+        gather_batch, init_batch_state, make_data_parallel_step, make_mesh,
+        make_mesh_sharded_step, make_xpbd_sharded_step, shard_batch)
+
+    topo = sbt.meshes.tet_cube(**MODES_CUBE)
+    jp, xp = modes_batch_params(sbt)
+
+    def batch(b, mode):
+        return init_batch_state(topo, b, inv_mass_mode=mode,
+                                key=torch.Generator().manual_seed(SEED),
+                                pos_jitter=0.002, device=device)
+
+    dc = "cuda"
+    shapes = [(1, 1)] if world == 1 else [(2, 1), (1, 2)]
+    runs = [("data_parallel", f"d={world}", make_data_parallel_step, jp,
+             make_mesh(axis_names=("data",), device_type=dc),
+             MODES_JACOBI_B, "density")]
+    for d, m in shapes:
+        runs.append(("mesh_sharded", f"{d}x{m}", make_mesh_sharded_step,
+                     jp, make_mesh(shape=(d, m), axis_names=("data",
+                                                             "model"),
+                                   device_type=dc), MODES_JACOBI_B,
+                     "density"))
+    xshape = (1, world)
+    runs.append(("xpbd_sharded", f"{xshape[0]}x{xshape[1]}",
+                 make_xpbd_sharded_step, xp,
+                 make_mesh(shape=xshape, axis_names=("data", "model"),
+                           device_type=dc), MODES_XPBD_B, "tet"))
+    out = {}
+    for kind, label, make, params, mesh, b, mode in runs:
+        step = make(topo, params, mesh, device=device)
+        # the first step builds the block's union: untimed
+        block = step(shard_batch(batch(b, mode), mesh), DT)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MODES_STEPS - 1):
+            block = step(block, DT)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (MODES_STEPS - 1)
+        full = gather_batch(block, mesh)
+        out[f"{kind} {label}"] = {
+            "x": full.x.cpu().numpy(), "ms": ms,
+            "edge_lambda": full.edge_lambda.cpu().numpy(),
+            "block": int(block.x.shape[0])}
+    return out
+
+
+def modes_batch_params(sbt) -> tuple:
+    """O3's jacobi (phase D's: phase 4's configuration on 'gather') and
+    xpbd (the north star's 8 x 1 on the coloured backend) parameters."""
+    return (sbt.SolverParams(**{**JACOBI, "jacobi_backend": "gather"}),
+            sbt.SolverParams(dialect="xpbd", substeps=8, iterations=1,
+                             xpbd_backend="gather"))
+
+
+def modes_rank(rank, world):
+    """A spawned rank of O2 / O3's two-rank runs: every rank on cuda:0, a
+    gloo group whose collectives go through pinned host memory."""
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import softbodysim_torch as sbt
+    from softbodysim_torch.parallel import make_mesh
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    topo = sbt.meshes.tet_cube(**NORTH_STAR)
+    out = run_modes(sbt, topo, device, make_mesh(device_type="cuda"))
+    out["batched"] = batched_modes(sbt, device, world)
+    return out
+
+
+def modes_grads(sbt, topo, device) -> dict:
+    """O4 at D = 1: one value_and_grad of ``diff.make_rollout(mesh=)`` per
+    dialect over MODES_STEPS steps, against the single-device gradient of
+    phase K's configurations: xpbd (K1's 8 x 1 coloured build; the mesh
+    step is make_xpbd_sharded_step forward, the coloured build's VJP
+    backward) d mean(traj^2) / d v0 from seeded velocities; jacobi (K2's
+    floor box, 'segment', the body 5 cm into the box) d loss / d
+    (edge_stiffness, sor_omega) of a trajectory loss."""
+    from softbodysim_torch import diff
+    from softbodysim_torch.parallel import make_mesh
+
+    mesh = make_mesh(shape=(1, 1), axis_names=("data", "model"))
+    f32t = dict(dtype=torch.float32, device=device)
+    out = {}
+
+    def batched(st):
+        return sbt.SimState(**{f: getattr(st, f)[None] for f in (
+            "x", "v", "x_star", "inv_mass", "edge_lambda", "tet_lambda")})
+
+    xp = sbt.SolverParams(substeps=8, iterations=1)
+    s0 = sbt.init_state(topo, device=device)
+    v0 = torch.from_numpy(np.random.default_rng(SEED).normal(
+        0.0, 0.5, (topo.num_particles, 3)).astype(np.float32)).to(device)
+    grads = {}
+    for label, kw, wrap in (("single", {}, lambda st: st),
+                            ("mesh", {"mesh": mesh}, batched)):
+        roll = diff.make_rollout(topo, xp, dt=DT, nsteps=MODES_STEPS,
+                                 remat=False, device=device, **kw)
+        v = v0.clone().requires_grad_(True)
+        reset_counts()
+        _, (g,), ms, peak = timed_grad(lambda: torch.mean(torch.square(
+            roll(wrap(with_velocity(sbt, s0, v))))), (v,))
+        grads[label] = g
+        out[f"xpbd_{label}_ms"] = ms
+    ref = grads["single"]
+    err = float((grads["mesh"] - ref).abs().max() / ref.abs().max())
+    out["xpbd_grad_rel"] = err
+    print(f"phase O4 xpbd d mean(traj^2)/d v0 over {MODES_STEPS} steps, "
+          f"mesh (1, 1) against the single-device coloured build: max "
+          f"|diff| / max |ref| {err:.3e} (tol {MODES_GRAD_TOL}); "
+          f"{out['xpbd_mesh_ms']:.0f} / {out['xpbd_single_ms']:.0f} ms",
+          flush=True)
+    if not err <= MODES_GRAD_TOL:
+        raise AssertionError("phase O4: the xpbd mesh gradient differs")
+
+    jp = sbt.SolverParams(**JACOBI)
+    box = floor_box(sbt, device)
+    drop = float(topo.vertices[:, 1].min()) - (FLOOR_BOX_TOP - 0.05)
+    x = s0.x - torch.tensor([0.0, drop, 0.0], **f32t)
+    st = sbt.SimState(x=x, v=s0.v, x_star=x, inv_mass=s0.inv_mass,
+                      edge_lambda=s0.edge_lambda, tet_lambda=s0.tet_lambda)
+    with torch.no_grad():
+        target = diff.make_rollout(topo, jp, dt=DT, nsteps=MODES_STEPS,
+                                   colliders=box, device=device)(
+            st, {"edge_stiffness": 0.6, "sor_omega": 1.2})
+    grads = {}
+    for label, kw, state0, tgt in (("single", {}, st, target),
+                                   ("mesh", {"mesh": mesh}, batched(st),
+                                    target[:, None])):
+        loss = diff.make_trajectory_loss(topo, jp, tgt, dt=DT,
+                                         state0=state0, colliders=box,
+                                         remat=False, device=device, **kw)
+        k = torch.tensor(jp.edge_stiffness, **f32t, requires_grad=True)
+        om = torch.tensor(jp.sor_omega, **f32t, requires_grad=True)
+        reset_counts()
+        _, g, ms, _ = timed_grad(
+            lambda: loss({"edge_stiffness": k, "sor_omega": om}), (k, om))
+        counts = read_counts()
+        check_launched(counts, ("collide",), f"phase O4 jacobi {label}")
+        grads[label] = torch.stack(g)
+        out[f"jacobi_{label}_ms"] = ms
+    ref = grads["single"]
+    err = float((grads["mesh"] - ref).abs().max() / ref.abs().max())
+    out["jacobi_grad_rel"] = err
+    print(f"phase O4 jacobi d loss/d (edge_stiffness, sor_omega) "
+          f"{grads['mesh'].tolist()} against the single-device "
+          f"{ref.tolist()}: rel {err:.3e} (tol {MODES_GRAD_TOL})",
+          flush=True)
+    if not err <= MODES_GRAD_TOL:
+        raise AssertionError("phase O4: the jacobi mesh gradient differs")
+    return out
+
+
+def modes_path(sbt, topo, device, card: str) -> tuple:
+    """Phase O: the vertex-sharded steps behind Engine(mesh=...) (O1 at
+    D = 1 on NCCL in this process, O2 at D = 2 as two spawned gloo ranks
+    on the card), the data- and constraint-parallel steps (O3) and the
+    mesh rollouts' gradients (O4).  Returns (O1's launch counts, a
+    summary)."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch_sharded_ranks as tr
+
+    from softbodysim_torch.parallel import make_batched_step, spawn
+
+    t0 = time.perf_counter()
+    ref = {}
+    for name, (params, boxed) in modes_params(sbt).items():
+        e = sbt.Engine(topo, params, device=device,
+                       colliders=floor_box(sbt, device) if boxed else None)
+        e.state = tr.kicked(e, SEED, SHARDED_V_SIGMA)
+        e.run(MODES_STEPS, DT)
+        ref[name] = {f: getattr(e.state, f).cpu().numpy()
+                     for f in ("x", "edge_lambda", "tet_lambda")}
+        del e
+    cube = sbt.meshes.tet_cube(**MODES_CUBE)
+    batch_ref = {}
+    for kind, params, b, mode in zip(
+            ("jacobi", "xpbd"), modes_batch_params(sbt),
+            (MODES_JACOBI_B, MODES_XPBD_B), ("density", "tet")):
+        from softbodysim_torch.parallel import init_batch_state
+
+        st = init_batch_state(cube, b, inv_mass_mode=mode,
+                              key=torch.Generator().manual_seed(SEED),
+                              pos_jitter=0.002, device=device)
+        step = make_batched_step(cube, params, device=device)
+        for _ in range(MODES_STEPS):
+            st = step(st, DT)
+        batch_ref[kind] = {"x": st.x.cpu().numpy(),
+                           "edge_lambda": st.edge_lambda.cpu().numpy()}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            from softbodysim_torch.parallel import make_mesh
+
+            d1 = run_modes(sbt, topo, device, make_mesh())
+            d1["batched"] = batched_modes(sbt, device, 1)
+            grads = modes_grads(sbt, topo, device)
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    d2 = spawn(modes_rank, 2, backend="gloo", timeout_s=600.0)
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"phase O: {what}")
+
+    summary = {"card": card, "steps": MODES_STEPS, "gradients": grads}
+    for D, runs in ((1, [d1]), (2, d2)):
+        for name in ("xpbd", "jacobi"):
+            r = runs[0][name]
+            err = float(np.abs(r["x"] - ref[name]["x"]).max())
+            lam = max(float(np.abs(r[f] - ref[name][f]).max())
+                      for f in ("edge_lambda", "tet_lambda"))
+            ranks_same = all(
+                np.array_equal(q[name][f], r[f]) for q in runs[1:]
+                for f in ("x", "edge_lambda", "tet_lambda"))
+            line = {"ms_per_step": [q[name]["ms"] for q in runs],
+                    "build_s": [q[name]["build_s"] for q in runs],
+                    "collective_host_share": [
+                        q[name]["collective_host_share"] for q in runs],
+                    "transport": r["transport"], "backend": r["backend"],
+                    "halo": [q[name]["halo"] for q in runs],
+                    "same_bits_twice": [q[name]["same_bits"] for q in runs],
+                    "ranks_same_bits": ranks_same,
+                    "err_vs_single_device": err,
+                    "lambda_err_vs_single_device": lam,
+                    "constraint_correction_m": r["work"],
+                    "launches": [{k: v for k, v in q[name][
+                        "counts"].items() if v} for q in runs]}
+            print(f"phase O {name} D={D}: {json.dumps(line)} on {card}",
+                  flush=True)
+            tol = MODES_X_TOL if name == "xpbd" else MODES_J_TOL
+            check(all(line["same_bits_twice"]) and ranks_same,
+                  f"{name} D={D}: a second run or another rank differs")
+            check(np.isfinite(r["x"]).all(), f"{name} D={D}: non-finite")
+            check(err <= tol, f"{name} D={D} against the single-device "
+                  f"step: {err} > {tol}")
+            check(r["work"] >= SHARDED_WORK * tol, f"{name} D={D}: the "
+                  f"constraints corrected {r['work']} m, under "
+                  f"{SHARDED_WORK * tol} m")
+            if name == "xpbd":
+                check(lam <= MODES_LAM_TOL, f"xpbd D={D}: lambdas {lam}")
+            else:
+                for q in runs:
+                    check_launched(q[name]["counts"], ("collide",),
+                                   f"phase O jacobi D={D}")
+            summary[f"{name}_D{D}"] = line
+        for label, r in runs[0]["batched"].items():
+            kind = "xpbd" if label.startswith("xpbd") else "jacobi"
+            want = batch_ref[kind]
+            err = float(np.abs(r["x"] - want["x"]).max())
+            lam = float(np.abs(r["edge_lambda"]
+                               - want["edge_lambda"]).max())
+            same = all(np.array_equal(q["batched"][label]["x"], r["x"])
+                       for q in runs[1:])
+            line = {"ms_per_step": [q["batched"][label]["ms"]
+                                    for q in runs],
+                    "block": r["block"], "err_vs_batched": err,
+                    "lambda_err_vs_batched": lam, "ranks_same_bits": same}
+            print(f"phase O3 {label} D={D}: {json.dumps(line)} on {card}",
+                  flush=True)
+            check(same, f"O3 {label}: the ranks differ")
+            check(err <= MODES_BATCH_TOL, f"O3 {label} against the batched "
+                  f"step: {err} > {MODES_BATCH_TOL}")
+            if kind == "xpbd":
+                check(lam <= MODES_LAM_TOL, f"O3 {label}: lambdas {lam}")
+            summary[f"O3 {label} D={D}"] = line
+    summary["seconds"] = time.perf_counter() - t0
+    merged = collections.Counter()
+    for name in ("xpbd", "jacobi"):
+        merged.update(d1[name]["counts"])
+    return dict(merged), summary
+
+
+# --------------------------------------------------------------------------
 # Phase M: the bf16 particle table; phase N: softbodysim_torch.perf
 # --------------------------------------------------------------------------
 
@@ -3802,6 +4209,10 @@ def main() -> int:
     # the kernel-sharded steps, timed before any profiler runs
     sh_counts, sharded = sharded_path(sbt, topo, device, card)
     print(json.dumps({"sharded": sharded}), flush=True)
+    # the vertex-sharded, data- and constraint-parallel modes, before any
+    # profiler runs
+    _, modes = modes_path(sbt, topo, device, card)
+    print(json.dumps({"modes": modes}), flush=True)
     # the bf16 particle table, before any profiler runs
     t0 = time.perf_counter()
     m_rows, m_calls = compare_bf16_kernels(sbt, ksw, topo, device)

@@ -15,9 +15,11 @@ step, SoftBodyManager.cs:239-261).
 
 ``mesh`` (``parallel.sharding.make_mesh``: a ``DeviceMesh`` over a
 ``torch.distributed`` process group) splits the scene across the ranks of
-its "model" dimension (``parallel.sharding.make_sharded_step``): the same
-step / run / positions API, each rank keeping its own rows on its device
-between calls (the carry), the public state gathered on access.  Every
+its "model" dimension (``parallel.sharding.make_sharded_step``: the
+kernel-sharded steps for a big scene on the card or a forced kernel
+backend, the vertex-sharded steps otherwise): the same step / run /
+positions API, each rank keeping its own rows on its device between calls
+(the carry), the public state gathered on access.  Every
 rank builds the Engine with the same arguments and makes the same calls
 in the same order (reading the state or the positions gathers across the
 ranks).

@@ -67,9 +67,7 @@ class SolverParams:
     backend 'gather' (what 'auto' picks otherwise; 'scatter' is its
     alias), and the 'jacobi' dialect on the 'segment', 'gather' and 'pass'
     backends (``jacobi_backend``; 'pallas' is an alias of 'pass', which
-    'auto' picks on a CUDA device at >= 100k constraints).  Knobs of
-    slices not yet ported are accepted and raise NotImplementedError where
-    a step would use them."""
+    'auto' picks on a CUDA device at >= 100k constraints)."""
 
     substeps: int = 2
     iterations: int = 6

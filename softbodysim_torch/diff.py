@@ -29,6 +29,11 @@ step is wrapped in ``torch.utils.checkpoint`` (recomputed in the backward
 pass, as the JAX function's ``jax.checkpoint``) by default; pass
 ``remat=False`` for short rollouts whose residuals fit anyway.
 
+``mesh=`` distributes a scene-batched rollout over the ranks of a
+``torch.distributed`` mesh (``make_rollout``): every rank computes the
+same loss and the same gradient, so an optimizer stepping on each rank
+keeps the ranks' parameters equal.
+
 Entry points run on ``device`` (default: the card, ``cuda:0``; the CPU
 when asked for).
 """
@@ -82,6 +87,7 @@ def differentiable_params(params: SolverParams) -> SolverParams:
 
 def make_rollout(topology, params: SolverParams, *, dt: float, nsteps: int,
                  colliders=None, remat: bool = True, mesh=None,
+                 data_axis: str = "data", model_axis: str = "model",
                  device=None):
     """Build ``rollout(state0, overrides=None) -> (nsteps, V, 3)``: the
     position trajectory of ``nsteps`` solver steps on ``device``,
@@ -89,19 +95,40 @@ def make_rollout(topology, params: SolverParams, *, dt: float, nsteps: int,
     dict (keys from ``FITTABLE[params.dialect]``, and ``gravity_override``
     for xpbd; values floats or tensors).
 
-    ``mesh`` (the JAX function's distributed rollout; the sharded steps
-    have no gradient yet) is not ported yet: it raises
-    NotImplementedError."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_rollout(mesh=...) is not ported yet (ROADMAP.md queue 1, "
-            "'Multi-device')")
+    ``mesh`` (``parallel.make_mesh`` with dimensions ``data_axis`` and
+    ``model_axis``): the distributed rollout, on every rank of the mesh
+    with the same arguments.  ``state0`` is a batch of B scenes (every
+    field with a leading scene axis), the same on every rank; each rank
+    steps its block of B / d scenes (``parallel.shard_batch``) and the
+    trajectory comes back whole, (nsteps, B, V, 3), the same on every rank
+    (gathered over ``data_axis``), and so do the gradients.  The jacobi
+    step is ``parallel.make_mesh_sharded_step`` (its material overrides
+    may be tensors); the xpbd step is ``make_xpbd_sharded_step`` forward
+    with the single-device coloured build's vector-Jacobian product as its
+    backward (``_ShardedXpbdStep``), and takes no override."""
     p = differentiable_params(params)
     allowed = FITTABLE[p.dialect] + _ROLLOUT_ONLY[p.dialect]
-    # the jacobi plain steps differentiate as built; the coloured xpbd
-    # step has a build of its own for autograd (no CUDA graph)
-    kw = {"differentiable": True} if p.dialect == "xpbd" else {}
-    step = make_step(topology, p, colliders=colliders, device=device, **kw)
+    data = None
+    if mesh is not None:
+        from .parallel.collectives import Axis
+        from .parallel.sharding import make_mesh_sharded_step, shard_batch
+
+        data = Axis(mesh, data_axis)
+        if p.dialect == "jacobi":
+            allowed = FITTABLE["jacobi"]
+            step = make_mesh_sharded_step(topology, p, mesh, colliders,
+                                          data_axis, model_axis,
+                                          device=device)
+        else:
+            allowed = ()
+            step = _sharded_xpbd(topology, p, mesh, colliders, data_axis,
+                                 model_axis, dt, device)
+    else:
+        # the jacobi plain steps differentiate as built; the coloured xpbd
+        # step has a build of its own for autograd (no CUDA graph)
+        kw = {"differentiable": True} if p.dialect == "xpbd" else {}
+        step = make_step(topology, p, colliders=colliders, device=device,
+                         **kw)
 
     def one(state: SimState, overrides) -> SimState:
         return step(state, dt, **overrides)
@@ -120,14 +147,91 @@ def make_rollout(topology, params: SolverParams, *, dt: float, nsteps: int,
             raise ValueError(
                 f"overrides {sorted(bad)} not fittable for dialect "
                 f"{p.dialect!r}; allowed: {allowed}")
-        st, xs = state0, []
+        st = state0
+        if data is not None:
+            # each data rank steps its own scenes: a replicated override's
+            # gradient sums the data ranks' shares
+            st = shard_batch(state0, mesh, data_axis)
+            ov = {k: data.varying(v) for k, v in ov.items()}
+        xs = []
         for _ in range(int(nsteps)):
             st = run(st, ov)
             xs.append(st.x)
-        return torch.stack(xs)
+        traj = torch.stack(xs)
+        if data is not None:
+            traj = data.all_gather(traj, tiled=True, dim=1)
+        return traj
 
     rollout.step = step
     return rollout
+
+
+class _ShardedXpbdStep(torch.autograd.Function):
+    """One step of the constraint-sharded xpbd step (``parallel.
+    make_xpbd_sharded_step``) forward, the vector-Jacobian product of the
+    single-device coloured build (``make_step(..., differentiable=True)``)
+    backward, recomputed per scene from the saved input state under
+    ``torch.enable_grad()`` (the JAX package's ``_sharded_xpbd_custom_vjp``,
+    ``softbodysim_tpu/diff.py:151-189``): both compute the same function,
+    and the sharded step's own reverse graph is never built.  Inputs and
+    outputs: this rank's block (x, v, inv_mass, edge_lambda, tet_lambda);
+    every model rank computes the whole backward of its block, so no
+    cotangent is summed."""
+
+    @staticmethod
+    def forward(ctx, fns, x, v, w, el, tl):
+        sharded, _, dt = fns
+        ctx.fns = fns
+        ctx.save_for_backward(x, v, w, el, tl)
+        with torch.no_grad():
+            out = sharded(SimState(x=x, v=v, x_star=x, inv_mass=w,
+                                   edge_lambda=el, tet_lambda=tl), dt)
+        # a family the topology lacks comes back as the input: a copy
+        return (out.x, out.v, out.edge_lambda.clone(),
+                out.tet_lambda.clone())
+
+    @staticmethod
+    def backward(ctx, gx, gv, gel, gtl):
+        _, single, dt = ctx.fns
+        need = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            x, v, w, el, tl = ins
+            outs = [single(SimState(x=x[s], v=v[s], x_star=x[s],
+                                    inv_mass=w[s], edge_lambda=el[s],
+                                    tet_lambda=tl[s]), dt)
+                    for s in range(x.shape[0])]
+            ys = [torch.stack([getattr(o, f) for o in outs])
+                  for f in ("x", "v", "edge_lambda", "tet_lambda")]
+            want = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad(
+                ys, want, [gx, gv, gel, gtl], allow_unused=True))
+        return (None, *(next(got) if n else None for n in need))
+
+
+def _sharded_xpbd(topology, p: SolverParams, mesh, colliders, data_axis,
+                  model_axis, dt, device):
+    """The xpbd mesh step of ``make_rollout``: ``_ShardedXpbdStep`` over
+    this rank's block of scenes."""
+    from .parallel.sharding import make_xpbd_sharded_step
+
+    sharded = make_xpbd_sharded_step(topology, p, mesh, colliders,
+                                     data_axis, model_axis, device=device)
+    single = make_step(topology, p.replace(xpbd_backend="scatter"),
+                       colliders=colliders, device=device,
+                       differentiable=True)
+    fns = (sharded, single, dt)
+
+    def step(state: SimState, _dt) -> SimState:
+        x, v, el, tl = _ShardedXpbdStep.apply(
+            fns, state.x, state.v, state.inv_mass, state.edge_lambda,
+            state.tet_lambda)
+        return SimState(x=x, v=v, x_star=x, inv_mass=state.inv_mass,
+                        edge_lambda=el, tet_lambda=tl)
+
+    step.sharded = sharded
+    return step
 
 
 def make_trajectory_loss(topology, params: SolverParams, target, *,
@@ -177,7 +281,8 @@ def make_trajectory_loss(topology, params: SolverParams, target, *,
     def loss(overrides) -> torch.Tensor:
         traj = rollout(state0, overrides)
         if observed is not None:
-            traj = traj[:, observed]
+            traj = (traj[:, :, observed] if mesh is not None
+                    else traj[:, observed])
         return torch.mean(torch.square(traj - target))
 
     return loss

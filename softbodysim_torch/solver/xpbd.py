@@ -97,6 +97,23 @@ def commit(xs, x, pinned, inv_dt, params: SolverParams, keep):
     return torch.where(pinned, x, xs), torch.where(pinned, 0.0, vel)
 
 
+def step_terms(params: SolverParams, dt) -> tuple:
+    """A step's scalars from the params alone, float32-exact: (substeps,
+    sdt, 1 / sdt, {"edges" | "tets": compliance / sdt^2}, 1 - friction);
+    the sharded coloured steps' (``parallel/{constraint,vertex}.py``)."""
+    ss = max(1, params.substeps)
+    sdt = np.float32(dt) / np.float32(ss)
+    big = sdt > np.float32(1e-12)
+    inv_dt2 = np.float32(1.0) / (sdt * sdt) if big else np.float32(0.0)
+    alpha = {name: float(np.maximum(np.float32(c), np.float32(0.0))
+                         * inv_dt2)
+             for name, c in (("edges", params.edge_compliance),
+                             ("tets", params.volume_compliance))}
+    keep = float(np.float32(1.0 - min(1.0, max(0.0, params.friction))))
+    return (ss, float(sdt), float(np.float32(1.0) / sdt) if big else 0.0,
+            alpha, keep)
+
+
 def edge_dlambda(x, w, i0, i1, rest, lam, alpha):
     """One colour's distance projection (Sim.cpp:100-130): (dlambda, the
     role-0 correction n*dlambda, w0, w1); invalid constraints get 0."""

@@ -485,10 +485,35 @@ def test_value_errors_match_jax(case):
               "explicit batched")
 
 
-def test_mesh_rollout_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        diff.make_rollout(_cube(sbt), sbt.SolverParams(), dt=DT, nsteps=1,
-                          mesh=object(), device="cpu")
+def test_mesh_rollout_not_ported_yet(tmp_path):
+    """The mesh rollout is ported (tests/test_torch_sharded_modes.py holds
+    it on gloo worlds of 2 and 4): a mesh without a "data" dimension is
+    refused, and on a (data, model) mesh of one rank the rollout of a
+    one-scene batch is the single-device trajectory, bit for bit."""
+    import torch.distributed as dist
+
+    from softbodysim_torch.parallel import make_mesh
+
+    topo = _cube(sbt)
+    params = sbt.SolverParams(dialect="jacobi", jacobi_backend="segment")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        with pytest.raises(ValueError, match="'data'"):
+            diff.make_rollout(topo, params, dt=DT, nsteps=1,
+                              mesh=make_mesh(), device="cpu")
+        mesh = make_mesh(shape=(1, 1), axis_names=("data", "model"))
+        s0 = sbt.init_state(topo, device="cpu")
+        batch = sbt.SimState(**{f: getattr(s0, f)[None] for f in (
+            "x", "v", "x_star", "inv_mass", "edge_lambda", "tet_lambda")})
+        got = diff.make_rollout(topo, params, dt=DT, nsteps=2, mesh=mesh,
+                                device="cpu")(batch)
+        want = diff.make_rollout(topo, params, dt=DT, nsteps=2,
+                                 device="cpu")(s0)
+        assert tuple(got.shape) == (2, 1) + tuple(want.shape[1:])
+        assert torch.equal(got[:, 0], want)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_differentiable_build_refuses_kernel_backends():

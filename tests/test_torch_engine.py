@@ -182,10 +182,9 @@ def test_unported_features_raise(case, tmp_path):
     particle table on it, the coloured "gather" backend, "auto" on a small
     scene, the "jacobi" dialect with self collision and "self_collision"
     on the sweep backend) now step; a runtime collider set without a
-    make-time template ("colliders_rt") is refused.  "mesh" is ported for
-    the kernel-sharded steps: on a gloo group of one it steps to the
-    single-device Engine's bits, and the vertex-sharded modes ('auto' on a
-    small scene) still raise."""
+    make-time template ("colliders_rt") is refused.  "mesh" is ported: on a
+    gloo group of one the kernel-sharded step and the vertex-sharded step
+    ('auto' on a small scene) step to the single-device Engine's bits."""
     topo = _topo()
     kw = {}
     params = _sweep_params()
@@ -234,9 +233,13 @@ def _check_mesh_of_one(topo, params, tmp_path):
         ref = sbt.Engine(topo, params, device="cpu").run(2, DT)
         assert eng.backend == "sweep"
         assert np.array_equal(eng.positions(), ref.positions())
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sbt.Engine(topo, params.replace(xpbd_backend="auto"),
-                       device="cpu", mesh=mesh)
+        auto = params.replace(xpbd_backend="auto")
+        eng = sbt.Engine(topo, auto, device="cpu", mesh=mesh).run(2, DT)
+        ref = sbt.Engine(topo, auto, device="cpu").run(2, DT)
+        assert eng.backend == "gather"
+        assert np.array_equal(eng.positions(), ref.positions())
+        assert np.array_equal(eng.state.edge_lambda.numpy(),
+                              ref.state.edge_lambda.numpy())
     finally:
         dist.destroy_process_group()
 

@@ -81,6 +81,8 @@ def test_scan_sees_the_whole_port():
                  "softbodysim_torch/render/viewer.py",
                  "softbodysim_torch/parallel/collectives.py",
                  "softbodysim_torch/parallel/sharding.py",
+                 "softbodysim_torch/parallel/constraint.py",
+                 "softbodysim_torch/parallel/vertex.py",
                  "softbodysim_torch/solver/global_stages.py",
                  "softbodysim_torch/solver/xpbd_sweep_sharded.py",
                  "softbodysim_torch/solver/jacobi_pass_sharded.py",

@@ -29,8 +29,9 @@ Contracts, at the JAX tests' sizes and tolerances:
   (the 1/k fold) (tests/test_pallas_sharded.py).
 - ``Engine(mesh=...)`` forced onto the kernel backends matches the
   single-device Engine within 2e-5 (tests/test_engine_sharded.py);
-  'split' at D > 1 raises ValueError, a small scene under 'auto' raises
-  NotImplementedError (the vertex-sharded modes are not ported).
+  'split' at D > 1 raises ValueError; a small scene under 'auto' takes the
+  vertex-sharded steps, held to the single-device Engine within 2e-5 m
+  and 1e-4 (lambdas) on a box collider.
 - The accumulate-only mode's plain versions (the CPU side of
   ``jacobi_edge_accumulate`` / ``jacobi_tet_accumulate``) match the JAX
   pass built with ``apply=False`` within 1e-6, counts equal.
@@ -172,9 +173,14 @@ def _cases():
             "split_raises": ("raises", dict(
                 topology=SMALL_BALL, params=dict(
                     XPBD, xpbd_block_scheme="split"))),
-            "auto_raises": ("raises", dict(
-                topology=SMALL_BALL, params=dict(XPBD,
-                                                 xpbd_backend="auto")))},
+            "auto_xpbd": ("engine", dict(
+                topology=SMALL_BALL, params=dict(
+                    XPBD, iterations=3, xpbd_backend="auto"), steps=6,
+                box=BOX)),
+            "auto_jacobi": ("engine", dict(
+                topology=SMALL_BALL, params=dict(
+                    JACOBI, iterations=3, jacobi_backend="auto"),
+                steps=20, box=BOX))},
         4: {"jacobi_cube": cube_case},
     }
 
@@ -418,8 +424,15 @@ def test_engine_mesh_matches_single_device(bg):
 
 
 def test_engine_mesh_refusals(bg):
+    """'split' at D > 1 is refused; 'auto' on a small scene on the CPU
+    steps on the vertex-sharded modes, as the single-device Engine."""
     r = bg.ranks(2)[0]
     kind, msg = r["split_raises"]
     assert kind == "ValueError" and "split" in msg
-    kind, msg = r["auto_raises"]
-    assert kind == "NotImplementedError" and "Multi-device" in msg
+    for name in ("auto_xpbd", "auto_jacobi"):
+        e = r[name]
+        assert e["backends"] == ("gather", "gather")
+        np.testing.assert_allclose(e["sharded"], e["single"], rtol=0,
+                                   atol=2e-5)
+        np.testing.assert_allclose(e["sharded_lam"], e["single_lam"],
+                                   rtol=0, atol=1e-4)
