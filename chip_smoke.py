@@ -235,6 +235,25 @@ O. The vertex-sharded, data- and constraint-parallel modes
    collectives and a {"modes": {...}} line (with the card's name and
    power limit).  The D = 2 ranks share one card: not a scale-out
    figure.
+P. The entry hooks (``softbodysim_torch/entry.py``) and the examples
+   (``softbodysim_torch/examples/``), after phase O and before phase M and
+   any profiler.  P1: ``entry()`` (the coloured xpbd step on tet_cube(6),
+   2 x 6) on the card, HOOK_STEPS calls each against ``entry(device=
+   "cpu")`` within 1e-4 m, then three timed 5-call windows.  P4:
+   ``examples.datagen --batch 4096 --steps 10`` (its scene-steps/s and
+   projections/s, with the card's name and power limit),
+   ``examples.moving_collider --steps 30`` (the collide kernel launched, no
+   particle inside the capsule) and ``examples.checkpoint_resume --steps
+   20`` (bit for bit).  P2: ``dryrun_multichip(1)`` (NCCL, one rank) and
+   ``dryrun_multichip(2, backend="gloo")`` (two ranks on the card), each
+   beside the same call with ``device="cpu"``, the four at once: every
+   mode's rank-0 positions against the CPU's within 1e-4 m, every rank
+   the same bits, and each mode's kernels launched on every rank (collide
+   in the jacobi mesh and vertex modes, w_fill, edge_sweep, tet_sweep and
+   collide in the kernel-sharded sweeps, the two accumulate kernels and
+   collide in the kernel-sharded passes).  P3, meanwhile: ``python -m
+   softbodysim_torch.entry`` as a subprocess exits 0 and prints both OK
+   lines.  A {"hooks": {...}} line sums it up.
 M. The bf16 particle table (``SolverParams.xpbd_x_dtype="bfloat16"``),
    after phase L and before any profiler runs.  M1: the bf16 w fill,
    sweeps and collide stage against their plain versions on phase 11's
@@ -3835,6 +3854,194 @@ def modes_path(sbt, topo, device, card: str) -> tuple:
 
 
 # --------------------------------------------------------------------------
+# Phase P: the entry hooks (softbodysim_torch/entry.py) and the examples
+# --------------------------------------------------------------------------
+
+# entry()'s step on the card against entry(device="cpu"), calls compared
+HOOK_STEPS = 10
+# entry() and every dry-run mode, card against CPU (m)
+HOOK_TOL = 1e-4
+# the kernels each dry-run mode launches on the card (modes 1, 3 and 6
+# push out of the ground or the sphere with the collide kernel; 2 and 4
+# clamp the ground in plain ops and have no collider)
+HOOK_KERNELS = {
+    "jacobi_mesh": ("collide",),
+    "jacobi_vertex": ("collide",),
+    "xpbd_sweep_sharded": ("w_fill", "edge_sweep", "tet_sweep", "collide"),
+    "jacobi_pass_sharded": ("jacobi_edge_accumulate",
+                            "jacobi_tet_accumulate", "collide")}
+HOOK_COUNTED = ("collide", "w_fill", "edge_sweep", "tet_sweep",
+                "jacobi_edge_accumulate", "jacobi_tet_accumulate")
+# examples.datagen: scenes and timed steps
+DATAGEN_ARGS = ("--batch", "4096", "--steps", "10")
+COLLIDER_ARGS = ("--steps", "30")
+# examples.checkpoint_resume: the uninterrupted run's steps (saved half way)
+CHECKPOINT_ARGS = ("--steps", "20")
+
+
+def entry_check(device) -> dict:
+    """P1: ``entry()`` on the card, HOOK_STEPS calls, each against the same
+    call of ``entry(device="cpu")``; then three warm 5-call windows."""
+    from softbodysim_torch.entry import entry
+
+    fn, (st, dt) = entry()
+    cfn, (cst, _) = entry(device="cpu")
+    if st.x.device != device:
+        raise AssertionError(f"phase P: entry() built on {st.x.device}")
+    reset_counts()
+    errs = []
+    for _ in range(HOOK_STEPS):
+        st, cst = fn(st, dt), cfn(cst, dt)
+        errs.append(float((st.x.cpu() - cst.x).abs().max()))
+    counts = {k: v for k, v in read_counts().items() if v}
+    print(f"phase P entry(): {tuple(st.x.shape)} after {HOOK_STEPS} calls, "
+          f"max |card - cpu| per call {[f'{e:.2e}' for e in errs]} (tol "
+          f"{HOOK_TOL}); launches {counts}", flush=True)
+    if not (np.isfinite(st.x.cpu().numpy()).all()
+            and max(errs) <= HOOK_TOL):
+        raise AssertionError("phase P: entry() on the card differs from "
+                             "the CPU")
+
+    def run(n):
+        nonlocal st
+        for _ in range(n):
+            st = fn(st, dt)
+
+    ms = window_ms("phase P entry()", run, 5)
+    return {"max_err": max(errs), "ms_per_step": ms, "launches": counts}
+
+
+def dryrun_check(device) -> dict:
+    """P2: ``dryrun_multichip(1)`` (NCCL, one rank) and
+    ``dryrun_multichip(2, backend="gloo")`` (two ranks on the card), each
+    mode's rank-0 positions against the same call with device="cpu", every
+    rank's replicated positions the same bits, and each mode's kernels
+    launched on every rank.  The four calls run at once, a thread each."""
+    import threading
+
+    from softbodysim_torch.entry import MODES, dryrun_multichip
+
+    card, cpu, errors = {}, {}, []
+
+    def call(out, n, **kw):
+        try:
+            t0 = time.perf_counter()
+            out[n] = dryrun_multichip(n, **kw)
+            out[n]["seconds"] = time.perf_counter() - t0
+        except Exception as e:                    # noqa: BLE001
+            errors.append(e)
+
+    threads = [threading.Thread(target=call, args=args, kwargs=kw)
+               for args, kw in (((card, 1), {}),
+                                ((card, 2), {"backend": "gloo"}),
+                                ((cpu, 1), {"device": "cpu"}),
+                                ((cpu, 2), {"device": "cpu"}))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    out = {}
+    for n, backend in ((1, "nccl"), (2, "gloo")):
+        res = card[n]
+        line = {"backend": backend, "seconds": res["seconds"], "modes": {}}
+        for mode in MODES:
+            x = res["positions"][mode]
+            err = float(np.abs(x - cpu[n]["positions"][mode]).max())
+            same = all(np.array_equal(r[mode], x) for r in res["ranks"])
+            launches = [{k: r[mode].get(k, 0) for k in HOOK_COUNTED}
+                        for r in res["launches"]]
+            line["modes"][mode] = {"max_err_vs_cpu": err,
+                                   "ranks_same_bits": same,
+                                   "launches": launches}
+            print(f"phase P dryrun_multichip({n}, {backend}) {mode}: "
+                  f"{x.shape}, max |card - cpu| {err:.3e} (tol {HOOK_TOL}), "
+                  f"ranks the same bits {same}, launches per rank "
+                  f"{launches}", flush=True)
+            if not (np.isfinite(x).all() and err <= HOOK_TOL and same):
+                raise AssertionError(f"phase P dryrun {n} {mode}: {err}, "
+                                     f"ranks the same {same}")
+            for counts in launches:
+                check_launched(counts, HOOK_KERNELS.get(mode, ()),
+                               f"phase P dryrun {n} {mode}")
+        out[f"D{n}"] = line
+    return out
+
+
+def entry_module_start():
+    """P3: ``python -m softbodysim_torch.entry`` as a subprocess."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "softbodysim_torch.entry"], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def entry_module_check(proc) -> None:
+    out, _ = proc.communicate(timeout=300)
+    tail = out.strip().splitlines()[-2:]
+    print(f"phase P python -m softbodysim_torch.entry: exit "
+          f"{proc.returncode}, {tail}", flush=True)
+    if proc.returncode != 0 or not (
+            any(s.startswith("entry OK: (343, 3)") for s in tail)
+            and tail[-1] == "dryrun_multichip OK"):
+        raise AssertionError(f"phase P: python -m softbodysim_torch.entry "
+                             f"failed:\n{out[-4000:]}")
+
+
+def examples_check(card: str) -> dict:
+    """P4: examples.datagen at 4096 scenes (its rates), moving_collider
+    (the collide kernel launched, no particle inside the capsule) and
+    checkpoint_resume (bit for bit), on the card."""
+    from softbodysim_torch.examples import (checkpoint_resume, datagen,
+                                            moving_collider)
+
+    out = {}
+    gen = datagen.main(list(DATAGEN_ARGS))
+    out["datagen_4096"] = {k: gen[k] for k in (
+        "seconds", "scene_steps_per_s", "projections_per_s")}
+    print(f"phase P examples.datagen {' '.join(DATAGEN_ARGS)}: "
+          f"{gen['scene_steps_per_s']:.1f} scene-steps/s, "
+          f"{gen['projections_per_s']:.4g} projections/s on {card}",
+          flush=True)
+    if not np.isfinite(gen["positions"]).all():
+        raise AssertionError("phase P: datagen diverged")
+    reset_counts()
+    moving_collider.main(list(COLLIDER_ARGS))
+    counts = read_counts()
+    check_launched(counts, ("collide",), "phase P moving_collider")
+    out["moving_collider_collide_launches"] = counts["collide"]
+    diff = checkpoint_resume.main(list(CHECKPOINT_ARGS))
+    print(f"phase P examples: moving_collider {' '.join(COLLIDER_ARGS)} "
+          f"collide launches {counts['collide']}; checkpoint_resume "
+          f"{' '.join(CHECKPOINT_ARGS)} max diff {diff}", flush=True)
+    if diff != 0.0:
+        raise AssertionError("phase P: checkpoint_resume is not bit-exact")
+    out["checkpoint_resume_diff"] = diff
+    return out
+
+
+def hooks_path(device, card: str) -> dict:
+    """Phase P: entry() (P1), dryrun_multichip (P2), the module's
+    ``__main__`` (P3) and three examples (P4)."""
+    t0 = time.perf_counter()
+    out = {"entry": entry_check(device)}
+    out["examples"] = examples_check(card)
+    # the module and the dry runs last: they share the card with this
+    # process's timed work otherwise
+    proc = entry_module_start()
+    try:
+        out["dryrun"] = dryrun_check(device)
+        entry_module_check(proc)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = card
+    return out
+
+
+# --------------------------------------------------------------------------
 # Phase M: the bf16 particle table; phase N: softbodysim_torch.perf
 # --------------------------------------------------------------------------
 
@@ -4213,6 +4420,8 @@ def main() -> int:
     # profiler runs
     _, modes = modes_path(sbt, topo, device, card)
     print(json.dumps({"modes": modes}), flush=True)
+    # the entry hooks and the examples, before any profiler runs
+    print(json.dumps({"hooks": hooks_path(device, card)}), flush=True)
     # the bf16 particle table, before any profiler runs
     t0 = time.perf_counter()
     m_rows, m_calls = compare_bf16_kernels(sbt, ksw, topo, device)

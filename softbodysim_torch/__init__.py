@@ -49,6 +49,11 @@ kernel-sharded steps behind ``Engine(topo, params, mesh=make_mesh())``
 (``parallel/sharding.py``; the sweep kernels per rank for xpbd, the Jacobi
 passes' accumulate mode for jacobi).
 
+The entry hooks (``entry.py``: ``entry()``, the flagship step, and
+``dryrun_multichip(n)``, every multi-device mode on n ranks; ``python -m
+softbodysim_torch.entry``) and the examples (``python -m
+softbodysim_torch.examples.<name>``) drive it end to end.
+
 Entry points run on the card (``cuda:0``) unless given ``device="cpu"``,
 where the kernels' plain PyTorch versions run instead (the tests).
 """

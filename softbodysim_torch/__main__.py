@@ -192,8 +192,8 @@ def main(argv=None):
         _run_scene(args)
     elif args.cmd == "bench":
         sys.exit("softbodysim_torch bench is not ported yet (ROADMAP.md "
-                 "queue 1, 'The port's bench and entry()'); bench.py is the "
-                 "JAX package's")
+                 "queue 1, 'The port's bench'); bench.py is the JAX "
+                 "package's")
     elif args.cmd == "tetra":
         from .core.tetrahedralize import topology_from_obj
         from .io import save_topology

@@ -2,11 +2,11 @@
 host side).
 
 The outputs of ``softbodysim_tpu/core/adjacency.py`` (the reference's
-BuildEdgeAdjacency / BuildTetAdjacency, SoftBodySolver.cs:1082-1171:
-counting pass, prefix sum, fill in constraint order), array-equal; the CSR
-fill is one stable sort instead of a Python loop, so a 600k-constraint mesh
-takes milliseconds.  Multi-body merging (``combine_topologies``) belongs to
-the scenes slice and is not here.
+BuildEdgeAdjacency / BuildTetAdjacency / BuildTriAdjacency,
+SoftBodySolver.cs:1082-1212: counting pass, prefix sum, fill in constraint
+order), array-equal; the CSR fill is one stable sort instead of a Python
+loop, so a 600k-constraint mesh takes milliseconds.  ``combine_topologies``
+merges bodies into one scene.
 """
 
 from __future__ import annotations
@@ -40,6 +40,13 @@ def build_tet_adjacency(num_particles: int, tets: np.ndarray):
     tets = np.asarray(tets, np.int64).reshape(-1, 4)
     offsets, flat = _csr(num_particles, tets)
     return offsets, flat >> 2, flat & 3
+
+
+def build_tri_adjacency(num_particles: int, tris: np.ndarray):
+    """Returns (offsets (V+1,), tri_index (3S,))."""
+    tris = np.asarray(tris, np.int64).reshape(-1, 3)
+    offsets, flat = _csr(num_particles, tris)
+    return offsets, flat // 3
 
 
 def csr_to_padded(offsets: np.ndarray, *values: np.ndarray,

@@ -1,7 +1,7 @@
 """Procedural simulation meshes (NumPy; same generators as
 ``softbodysim_tpu/core/meshes.py``, so topologies compare array-equal):
-tet cubes and balls, and an edges-only cloth patch; and a minimal OBJ
-reader."""
+tet cubes and balls, a single tet, and an edges-only cloth patch; and
+minimal OBJ readers, with or without texture coordinates."""
 
 from __future__ import annotations
 
@@ -47,6 +47,16 @@ def tet_cube(nx: int = 4, ny: int = 4, nz: int = 4, size: float = 1.0,
     tets = np.take_along_axis(
         corners[:, None, :], pattern.reshape(-1, 5, 4), axis=2).reshape(-1, 4)
     return build_topology(verts, tets)
+
+
+def single_tet(scale: float = 1.0) -> Topology:
+    """One regular-ish tetrahedron -- the minimal end-to-end scene."""
+    verts = np.array(
+        [[0, 0, 0], [1, 0, 0], [0.5, 0, np.sqrt(3) / 2],
+         [0.5, np.sqrt(2.0 / 3.0), np.sqrt(3) / 6]],
+        np.float32,
+    ) * scale
+    return build_topology(verts, np.array([[0, 1, 2, 3]], np.int64))
 
 
 def tet_ball(subdivisions: int = 1, radius: float = 0.5,
@@ -159,3 +169,38 @@ def load_obj(path: str) -> Tuple[np.ndarray, np.ndarray]:
                 for k in range(1, len(idx) - 1):
                     faces.append([idx[0], idx[k], idx[k + 1]])
     return np.asarray(verts, np.float32), np.asarray(faces, np.int64)
+
+
+def load_obj_uv(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """OBJ loader with texture coordinates: (verts, faces, uvs), uvs a
+    per-vertex (V, 2) table.  The first ``vt`` referenced by a vertex wins
+    (OBJ's per-corner vt indices collapsed per vertex: a seam keeps one
+    side); a vertex never referenced with a ``vt`` gets (0, 0)."""
+    verts, vts, faces = [], [], []
+    uv_of = {}
+    with open(path, "r", encoding="utf-8", errors="replace") as f:
+        for line in f:
+            if line.startswith("v "):
+                p = line.split()
+                verts.append([float(p[1]), float(p[2]), float(p[3])])
+            elif line.startswith("vt "):
+                p = line.split()
+                vts.append([float(p[1]), float(p[2])])
+            elif line.startswith("f "):
+                corners = []
+                for tok in line.split()[1:]:
+                    sub = tok.split("/")
+                    vi = int(sub[0]) - 1
+                    corners.append(vi)
+                    if len(sub) > 1 and sub[1]:
+                        uv_of.setdefault(vi, int(sub[1]) - 1)
+                for k in range(1, len(corners) - 1):
+                    faces.append([corners[0], corners[k], corners[k + 1]])
+    verts = np.asarray(verts, np.float32)
+    vts = (np.asarray(vts, np.float32) if vts
+           else np.zeros((0, 2), np.float32))
+    uvs = np.zeros((len(verts), 2), np.float32)
+    for vi, ti in uv_of.items():
+        if 0 <= ti < len(vts):
+            uvs[vi] = vts[ti]
+    return verts, np.asarray(faces, np.int64), uvs

@@ -188,3 +188,11 @@ def init_state(topology, pinned=None, *, inv_mass_mode: str = "tet",
         tet_lambda=torch.zeros((tets.shape[0],), dtype=torch.float32,
                                device=dev),
     )
+
+
+def tet_signed_volume(p0, p1, p2, p3):
+    """Signed tet volume dot(cross(p1 - p0, p2 - p0), p3 - p0) / 6 of
+    (..., 3) tensors, fp32 (PBDServer.h:140-145); array-equal to the JAX
+    package's ``tet_signed_volume``."""
+    return torch.sum(torch.linalg.cross(p1 - p0, p2 - p0, dim=-1)
+                     * (p3 - p0), dim=-1) / 6.0

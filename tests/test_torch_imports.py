@@ -11,6 +11,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "softbodysim_tpu"}
 PORT_FILES = sorted((ROOT / "softbodysim_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+EXAMPLES = ("checkpoint_resume", "datagen", "drop_bodies", "fit_materials",
+            "mixed_dialect_world", "mixed_materials", "moving_collider",
+            "multi_client", "reference_scenes", "textured_fumo")
 
 
 def _imported_roots(path):
@@ -87,8 +90,24 @@ def test_scan_sees_the_whole_port():
                  "softbodysim_torch/solver/xpbd_sweep_sharded.py",
                  "softbodysim_torch/solver/jacobi_pass_sharded.py",
                  "softbodysim_torch/core/fixed.py",
-                 "softbodysim_torch/__main__.py", "chip_smoke.py"):
+                 "softbodysim_torch/__main__.py",
+                 "softbodysim_torch/entry.py",
+                 *(f"softbodysim_torch/examples/{m}.py" for m in EXAMPLES),
+                 "chip_smoke.py"):
         assert must in names
     # and the scan does catch an import
     assert "jax" in set(_imported_roots(ROOT / "softbodysim_tpu"
                                         / "core" / "state.py"))
+
+
+def test_remote_session_script_imports_no_jax():
+    """The shell example's embedded client imports the port only."""
+    import re
+
+    text = (ROOT / "softbodysim_torch" / "examples"
+            / "remote_session.sh").read_text()
+    roots = {m.group(1).split(".")[0] for m in re.finditer(
+        r"^\s*(?:from|import)\s+([\w.]+)", text, re.M)}
+    assert "softbodysim_torch" in roots
+    assert not roots & FORBIDDEN
+    assert "softbodysim_tpu" not in text and "JAX_PLATFORMS" not in text
